@@ -1,0 +1,435 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (kreeq_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, each of which raises on failure (the process then exits
+non-zero and never prints the final line):
+  1. card: name and power limit (nvidia-smi), torch and CUDA versions;
+  2. build: compile the CUDA kernels from ops/csrc/ with nvcc;
+  3. kernels against their plain PyTorch versions on the card, at the
+     main path's shapes (one 8M-base read chunk; the two largest parts
+     of a build's tree merge; one full 4,194,304-position validate
+     window), exact equality, median times with CUDA events;
+  4. end to end: `kreeq validate -r reads.fq -f asm.fa -k 21` through
+     the port's CLI on the card, on a generated yeast-scale assembly
+     (planted SNV/INS/DEL, an N run, IUPAC bases, short contigs) and
+     30x of 150-bp reads at 0.2% substitutions; every kernel must have
+     launched, and Total must equal the assembly's k-mer count;
+  5. the whole slice at 0.5 Mbp on the card and on the CPU (plain
+     versions): stdout must be byte-equal.
+The second-to-last line is a JSON object with each kernel's launches,
+error and times; the last is {"ok": true, "device": {...}}.  Needs a
+CUDA device; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+K = 21
+GENOME_MBP = 12.0  # yeast scale
+COVERAGE = 30
+READ_LEN = 150
+SUB_RATE = 0.002
+WINDOW = 1 << 22  # positions of one validate window (DBG.VALIDATE_WINDOW)
+CHUNK = 1 << 23  # bases of one read chunk (KREEQ_TPU_CHUNK default)
+# chromosome shares of the genome: ~3 Mbp each at 12 Mbp, the first one
+# long enough for a full validate window and a window seam
+CHROM_SHARES = (0.42, 0.25, 0.2, 0.13)
+LUT = np.frombuffer(b"ACGTN", np.uint8)
+
+KERNELS = (
+    ("count_runs", "count", "kreeq_tpu_torch/ops/csrc/count_runs.cu",
+     "kreeq_tpu/ops/pallas_kernels.py:59"),
+    ("merge_sorted", "merge", "kreeq_tpu_torch/ops/csrc/merge_sorted.cu",
+     "kreeq_tpu/ops/pallas_kernels.py:1223"),
+    ("probe_qv", "probe_qv", "kreeq_tpu_torch/ops/csrc/probe_qv.cu",
+     "kreeq_tpu/ops/pallas_kernels.py:844"),
+)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# generated inputs
+
+
+def make_inputs(rng, genome_mbp: float, coverage: float, path: str,
+                k: int = K):
+    """Write asm.fa and reads.fq under `path`.  Returns (fasta, fastq,
+    read bases, the assembly's k-mer count)."""
+    total = int(genome_mbp * 1e6)
+    sizes = [int(total * s) for s in CHROM_SHARES]
+    chroms = [rng.integers(0, 4, n).astype(np.uint8) for n in sizes]
+
+    records = []
+    for ci, truth in enumerate(chroms):
+        asm = truth.copy()
+        # about one SNV, INS or DEL per 10 kbp
+        nvar = max(len(asm) // 10_000, 3)
+        pos = rng.choice(len(asm) - 1, size=nvar, replace=False)
+        kind = rng.integers(0, 3, nvar)
+        snv = pos[kind == 0]
+        asm[snv] = (asm[snv] + rng.integers(1, 4, len(snv))) % 4
+        dele = set(pos[kind == 2].tolist())
+        ins = pos[kind == 1]
+        asm = np.insert(asm, ins, rng.integers(0, 4, len(ins)).astype(
+            np.uint8))
+        asm = np.delete(asm, sorted(i + int((ins < i).sum()) for i in dele))
+        text = LUT[asm].copy()
+        if ci == 0:
+            # an N run near the end, so the segment before it still
+            # holds a full validate window at 12 Mbp; IUPAC bases
+            end = len(text) - len(text) // 20
+            text[end:end + 500] = ord("N")
+            for j, c in enumerate(b"RYKMSW"):
+                text[len(text) // 2 + 997 * j] = c
+        records.append((f"chr{ci + 1}", text.tobytes().decode()))
+    # short contigs, one of them shorter than k
+    for j, n in enumerate((900, 650, 300, k - 5)):
+        c = chroms[j % len(chroms)]
+        s = int(rng.integers(0, len(c) - n))
+        records.append((f"ctg{j + 1}", LUT[c[s:s + n]].tobytes().decode()))
+
+    fa = os.path.join(path, "asm.fa")
+    with open(fa, "w") as fh:
+        for name, seq in records:
+            fh.write(f">{name}\n{seq}\n")
+    kcount = sum(max(len(s) - k + 1, 0) for _n, seq in records
+                 for s in re.split("[Nn]+", seq) if s)
+
+    fq = os.path.join(path, "reads.fq")
+    nreads = int(coverage * total / READ_LEN)
+    head, mid = b"@r\n", b"\n+\n"
+    row = len(head) + READ_LEN + len(mid) + READ_LEN + 1
+    with open(fq, "wb") as fh:
+        for ci, truth in enumerate(chroms):
+            todo = int(nreads * sizes[ci] / total)
+            while todo > 0:
+                nb = min(todo, 200_000)
+                todo -= nb
+                starts = rng.integers(0, len(truth) - READ_LEN + 1, nb)
+                reads = truth[starts[:, None] + np.arange(READ_LEN)]
+                rc = rng.random(nb) < 0.5
+                reads[rc] = 3 - reads[rc, ::-1]
+                err = rng.random(reads.shape) < SUB_RATE
+                reads[err] = (reads[err]
+                              + rng.integers(1, 4, int(err.sum()))) % 4
+                out = np.empty((nb, row), np.uint8)
+                out[:, :3] = np.frombuffer(head, np.uint8)
+                out[:, 3:3 + READ_LEN] = LUT[reads]
+                out[:, 3 + READ_LEN:6 + READ_LEN] = np.frombuffer(mid,
+                                                                  np.uint8)
+                out[:, 6 + READ_LEN:6 + 2 * READ_LEN] = ord("I")
+                out[:, -1] = ord("\n")
+                fh.write(out.tobytes())
+    read_bases = sum(int(nreads * n / total) for n in sizes) * READ_LEN
+    return fa, fq, read_bases, kcount
+
+
+# ---------------------------------------------------------------------------
+# helpers
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds of fn() between CUDA events, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def compare(name: str, got, want) -> float:
+    """Exact equality of two output tuples; returns the max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: {g.shape} {g.dtype} vs "
+                                 f"{w.shape} {w.dtype}")
+        if not torch.equal(g, w):
+            err = float((g.double() - w.double()).abs().max())
+            raise AssertionError(f"{name}: kernel differs from plain "
+                                 f"version (max abs err {err})")
+    return 0.0
+
+
+def run_cli(argv):
+    from kreeq_tpu_torch.cli.main import run
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run(argv)
+    if rc != 0:
+        raise AssertionError(f"{argv} returned {rc}")
+    return buf.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# phases
+
+
+def phase_card():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else f"nvidia-smi failed: {smi.stderr.strip()}"
+    log(card)
+    log(f"[1 card] {torch.cuda.get_device_name(0)}; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} device(s)")
+    return card
+
+
+def phase_build():
+    from kreeq_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    report = _build.build()
+    _build.library()
+    log(f"[2 build] nvcc build of ops/csrc in "
+        f"{time.perf_counter() - t0:.1f} s")
+    name = None
+    for line in report.splitlines():
+        m = re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)'", line)
+        if m:
+            name = m.group(2)[:int(m.group(1))]
+        elif "registers" in line and name:
+            log(f"    {name}: {line.split(':', 1)[1].strip()}")
+
+
+def phase_kernels(fq: str, fa: str, device):
+    """Kernel against plain version at the main path's shapes."""
+    import torch
+
+    from kreeq_tpu_torch.config import UserInput
+    from kreeq_tpu_torch.core.dbg import DBG
+    from kreeq_tpu_torch.core.table import KmerTable, TreeMerger
+    from kreeq_tpu_torch.io.fastx import iter_reads, load_genome
+    from kreeq_tpu_torch.io.sequence import Genome
+    from kreeq_tpu_torch.ops import kernels
+    from kreeq_tpu_torch.ops import kmers as Km
+    from kreeq_tpu_torch.ops import validate as V
+
+    class RecordingMerger(TreeMerger):
+        """Keeps the operands of the build's largest merge."""
+
+        largest = None
+
+        def merge(self, stored, fresh):
+            a = self._trim(stored)
+            rows = a[0].shape[0] + fresh[0].shape[0]
+            if self.largest is None or rows > self.largest[0]:
+                self.largest = (rows, a[:4], fresh[:4])
+            return super().merge(a, fresh)
+
+    # the build of the main path, driven step by step: host ingest
+    # first, then count and merge on the card
+    t0 = time.perf_counter()
+    bufs = list(Km.pack_reads(iter_reads(fq), K, CHUNK))
+    t1 = time.perf_counter()
+    tm = RecordingMerger()
+    first = None
+    for buf in bufs:
+        codes = torch.from_numpy(buf).to(device)
+        keys, _isfw, edges, valid = Km.kmer_positions(codes, K)
+        if first is None:
+            first = (keys, edges, valid)
+        tm.push(kernels.count_sorted_cuda(keys, edges, valid))
+    table = KmerTable(K, *tm.finalize())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"[3 kernels] ingest (parse + pack, host) {t1 - t0:.2f} s for "
+        f"{len(bufs)} chunks; count + merge on the card {t2 - t1:.2f} s; "
+        f"{len(table)} rows")
+    res = {"ingest_s": t1 - t0}
+
+    skeys, sedges = Km.sort_records(*first)
+    sort_ms = cuda_ms(lambda: Km.sort_records(*first))
+    res["count_runs"] = dict(
+        shape=f"P={skeys.shape[0]}",
+        max_abs_err=compare("count_runs", kernels.count_runs_cuda(
+            skeys, sedges), Km.count_runs(skeys, sedges)),
+        ms=cuda_ms(lambda: kernels.count_runs_cuda(skeys, sedges)),
+        plain_ms=cuda_ms(lambda: Km.count_runs(skeys, sedges)))
+    log(f"    sort_records (torch.sort + edge gather) before count_runs: "
+        f"{sort_ms:.3f} ms")
+
+    _rows, a, b = tm.largest
+    res["merge_sorted"] = dict(
+        shape=f"na={a[0].shape[0]} nb={b[0].shape[0]}",
+        max_abs_err=compare("merge_sorted", kernels.merge_sorted_cuda(
+            *a, *b), Km.merge_sorted(*a, *b)),
+        ms=cuda_ms(lambda: kernels.merge_sorted_cuda(*a, *b)),
+        plain_ms=cuda_ms(lambda: Km.merge_sorted(*a, *b)))
+
+    genome = Genome()
+    load_genome(fa, genome)
+    seg = max(genome.segments, key=len)
+    kcount = len(seg) - K + 1
+    if kcount < WINDOW:
+        raise AssertionError(f"longest segment {len(seg)} < one window")
+    dbg = DBG(UserInput(kmer_len=K), table)
+    wbuf = torch.from_numpy(dbg._window_buf(seg.codes, 0, WINDOW,
+                                            kcount)).to(device)
+    qkeys, qctx = V._extract_ctx_qv(wbuf, K)
+    tab = (table.keys, table.cov, table.fw, table.bw)
+    args = (*tab, qkeys, qctx, 1, 1 + WINDOW, 0)
+    res["probe_qv"] = dict(
+        shape=f"q={WINDOW} t={len(table)}",
+        max_abs_err=compare("probe_qv", (kernels.probe_qv_cuda(*args),),
+                            (V.qv_sums(*args),)),
+        ms=cuda_ms(lambda: kernels.probe_qv_cuda(*args)),
+        plain_ms=cuda_ms(lambda: V.qv_sums(*args)))
+    for name, _key, _src, _tpu in KERNELS:
+        r = res[name]
+        log(f"    {name:13s} {r['shape']:28s} kernel {r['ms']:9.3f} ms  "
+            f"plain {r['plain_ms']:9.3f} ms  exact")
+    return res
+
+
+def phase_end_to_end(fq, fa, read_bases, kcount, ingest_s, device):
+    import torch
+
+    from kreeq_tpu_torch.ops import kernels
+    from kreeq_tpu_torch.utils import log as klog
+
+    os.environ.pop("KREEQ_TPU_PLATFORM", None)
+    kernels.reset_launches()
+    klog._phases.clear()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out = run_cli(["kreeq", "validate", "-r", fq, "-f", fa, "-k", str(K)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    phases = dict(klog._phases)
+    for line in out.splitlines():
+        log("    | " + line)
+    build_s = phases["build k-mer DB"]
+    log(f"[4 end to end] wall {wall:.2f} s: build (ingest + count + "
+        f"merge) {build_s:.2f} s = {read_bases / build_s / 1e6:.2f} M "
+        f"read bases/s (ingest alone, timed in phase 3: {ingest_s:.2f} "
+        f"s); load genome {phases['load genome']:.2f} s; "
+        f"validate + report {phases['report']:.2f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} "
+        f"GiB; launches {launches}")
+    lines = out.splitlines()
+    rows = [ln.split("\t") for ln in lines[-2:]]
+    for row in rows:
+        missing, total, qv, err = (row[0], row[1], row[2], row[3])
+        if int(total) != kcount:
+            raise AssertionError(f"Total {total} != assembly k-mers "
+                                 f"{kcount}")
+        if not (0 < int(missing) < int(total)) or not (
+                np.isfinite(float(qv)) and np.isfinite(float(err))):
+            raise AssertionError(f"implausible QV row {row}")
+    if not lines[0].startswith("DBG Summary statistics:"):
+        raise AssertionError("no DB summary")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "main path")
+    return launches
+
+
+def phase_cuda_vs_cpu(seed: int):
+    from kreeq_tpu_torch.core.dbg import DBG
+
+    rng = np.random.default_rng(seed + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        fa, fq, _rb, _kc = make_inputs(rng, 0.5, 30, tmp)
+        argv = ["kreeq", "validate", "-r", fq, "-f", fa, "-k", str(K)]
+        old = DBG.VALIDATE_WINDOW
+        DBG.VALIDATE_WINDOW = 100_003  # window seams at this size too
+        try:
+            os.environ.pop("KREEQ_TPU_PLATFORM", None)
+            t0 = time.perf_counter()
+            gpu = run_cli(argv)
+            t1 = time.perf_counter()
+            os.environ["KREEQ_TPU_PLATFORM"] = "cpu"
+            cpu = run_cli(argv)
+            t2 = time.perf_counter()
+        finally:
+            os.environ.pop("KREEQ_TPU_PLATFORM", None)
+            DBG.VALIDATE_WINDOW = old
+    if gpu != cpu:
+        raise AssertionError(f"CUDA and CPU stdout differ:\n{gpu}\n---\n"
+                             f"{cpu}")
+    log(f"[5 cuda vs cpu] 0.5 Mbp, 30x: stdout byte-equal "
+        f"(cuda {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s)")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import kreeq_tpu_torch  # noqa: F401  (run from the repository root)
+
+    device = torch.device("cuda", 0)
+
+    phase_card()
+    phase_build()
+    rng = np.random.default_rng(args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        fa, fq, read_bases, kcount = make_inputs(rng, GENOME_MBP, COVERAGE,
+                                                 tmp)
+        log(f"[data] {GENOME_MBP} Mbp assembly ({kcount} k-mers), "
+            f"{read_bases / 1e6:.0f} Mbp of reads in "
+            f"{os.path.getsize(fq) / 2**20:.0f} MiB FASTQ, generated in "
+            f"{time.perf_counter() - t0:.1f} s")
+        res = phase_kernels(fq, fa, device)
+        launches = phase_end_to_end(fq, fa, read_bases, kcount,
+                                    res["ingest_s"], device)
+    phase_cuda_vs_cpu(args.seed)
+
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+         "launches": launches[key], "max_abs_err": res[name]["max_abs_err"],
+         "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"]}
+        for name, key, src, tpu in KERNELS]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

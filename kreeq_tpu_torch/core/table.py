@@ -1,0 +1,205 @@
+"""KmerTable: the device-resident sorted k-mer count table.
+
+Counterpart of kreeq_tpu/core/table.py for the single-device build: a
+sorted structure of arrays {keys, cov, fw[4], bw[4]} of exactly n rows
+on one device, in the port's dtypes (constants.py).  The build counts
+read chunks and tree-merges the chunk tables on the device through the
+kernel wrappers of ops/kernels.py.
+
+Not yet ported: `.kreeq` I/O, the host-merge spill for tables beyond
+device memory, table windows, build checkpoints and sharded builds.
+A merge that would not fit in device memory raises instead.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from ..constants import keys_from_u64, keys_to_u64
+
+# device bytes a merge of m rows allocates: the merged buffer (8 B key +
+# 72 B counters) and the output (80 B)
+_MERGE_BYTES_PER_ROW = 160
+
+
+def _check_fits(rows: int, device: torch.device) -> None:
+    """Raise when a merge of `rows` rows would not fit in device memory
+    (the out-of-core build, which spills such merges to the host, is
+    not yet ported)."""
+    if device.type != "cuda":
+        return
+    free, _total = torch.cuda.mem_get_info(device)
+    free += (torch.cuda.memory_reserved(device)
+             - torch.cuda.memory_allocated(device))
+    need = rows * _MERGE_BYTES_PER_ROW
+    if need > free:
+        raise RuntimeError(
+            f"out-of-core build not yet ported: merging {rows} rows needs "
+            f"{need} bytes on {device}, {free} are free")
+
+
+class TreeMerger:
+    """Pairwise tree-merge of per-chunk count parts, on the device.
+
+    A part is (keys, cov, fw, bw, n): a sorted table with a SENTINEL
+    tail and its real row count n as a 0-d device tensor.  Level i holds
+    at most one part, the merge of 2^i chunks, so every merge joins two
+    parts of similar size (the JAX TreeMerger's policy, without its
+    host spill).  Stored parts are trimmed to their n rows (a copy, so
+    the untrimmed buffer is freed) at the next push; fresh parts enter
+    merges with their SENTINEL tails."""
+
+    def __init__(self):
+        self.levels = []
+
+    @staticmethod
+    def _trim(part):
+        keys, cov, fw, bw, n = part
+        m = int(n)
+        if m < keys.shape[0]:
+            return (keys[:m].clone(), cov[:m].clone(), fw[:m].clone(),
+                    bw[:m].clone(), n)
+        return part
+
+    def merge(self, stored, fresh):
+        from ..ops.kernels import merge_sorted_cuda
+
+        a = self._trim(stored)[:4]
+        b = fresh[:4]
+        _check_fits(a[0].shape[0] + b[0].shape[0], a[0].device)
+        return merge_sorted_cuda(*a, *b)
+
+    def push(self, part):
+        # retrim the stored levels first: untrimmed merge outputs would
+        # hold device memory at several times their content
+        levels = self.levels
+        for j, lv in enumerate(levels):
+            if lv is not None:
+                levels[j] = self._trim(lv)
+        i = 0
+        while True:
+            if i == len(levels):
+                levels.append(part)
+                return
+            if levels[i] is None:
+                levels[i] = part
+                return
+            part = self.merge(levels[i], part)
+            levels[i] = None
+            i += 1
+
+    def finalize(self):
+        """Reduce the levels to one trimmed (keys, cov, fw, bw), or None
+        when no part was pushed."""
+        acc = None
+        for part in self.levels:
+            if part is None:
+                continue
+            acc = part if acc is None else self.merge(acc, self._trim(part))
+        self.levels = []
+        return None if acc is None else self._trim(acc)[:4]
+
+
+@dataclass
+class TableStats:
+    total: int
+    unique: int
+    distinct: int
+    edges: int
+
+    def missing(self, k: int) -> int:
+        return 4 ** k - self.distinct
+
+
+@dataclass
+class KmerTable:
+    """Sorted unique k-mer table of exactly n rows on one device."""
+
+    k: int
+    keys: torch.Tensor  # int64 [n], sorted ascending
+    cov: torch.Tensor  # int64 [n]
+    fw: torch.Tensor  # int64 [n, 4]
+    bw: torch.Tensor  # int64 [n, 4]
+
+    @property
+    def device(self) -> torch.device:
+        return self.keys.device
+
+    @classmethod
+    def empty(cls, k: int, device) -> "KmerTable":
+        z = torch.zeros((0, 4), dtype=torch.int64, device=device)
+        return cls(k, torch.zeros(0, dtype=torch.int64, device=device),
+                   torch.zeros(0, dtype=torch.int64, device=device), z,
+                   z.clone())
+
+    def __len__(self) -> int:
+        return self.keys.shape[0]
+
+    @classmethod
+    def from_numpy(cls, k: int, keys, cov, fw, bw, device) -> "KmerTable":
+        """From the JAX package's table arrays (u64 keys, u32 counters)."""
+        def dev(a):
+            return torch.from_numpy(
+                np.ascontiguousarray(a).astype(np.int64)).to(device)
+
+        return cls(k, torch.from_numpy(keys_from_u64(keys)).to(device),
+                   dev(cov), dev(fw), dev(bw))
+
+    def to_numpy(self):
+        """(keys u64 [n], cov u32 [n], fw u32 [n, 4], bw u32 [n, 4]) in
+        the JAX package's dtypes."""
+        return (keys_to_u64(self.keys.cpu().numpy()),
+                *(a.cpu().numpy().astype(np.uint32)
+                  for a in (self.cov, self.fw, self.bw)))
+
+    @classmethod
+    def from_reads(cls, read_files: Iterable[str], k: int, device,
+                   chunk: int | None = None) -> "KmerTable":
+        """Count the canonical k-mers of all reads on `device`.
+
+        `chunk` (bases per device step) defaults to the KREEQ_TPU_CHUNK
+        environment variable, else 8M.  Per chunk: kmer_positions, then
+        count_sorted_cuda; chunk tables are tree-merged with
+        merge_sorted_cuda (reference build phase:
+        src/graph-builder.cpp:34-223)."""
+        from ..io.fastx import iter_reads
+        from ..ops import kmers as K
+        from ..ops.kernels import count_sorted_cuda
+        from ..utils import log
+
+        if chunk is None:
+            chunk = int(os.environ.get("KREEQ_TPU_CHUNK", 1 << 23))
+        read_files = list(read_files)
+
+        def read_iter():
+            for path in read_files:
+                yield from iter_reads(path)
+
+        tm = TreeMerger()
+        for i, buf in enumerate(K.pack_reads(read_iter(), k, chunk)):
+            codes = torch.from_numpy(buf).to(device)
+            keys, _isfw, edges, valid = K.kmer_positions(codes, k)
+            tm.push(count_sorted_cuda(keys, edges, valid))
+            if log.verbose_flag:
+                log.verbose(f"counted chunk {i}")
+        acc = tm.finalize()
+        if acc is None:
+            return cls.empty(k, device)
+        return cls(k, *acc)
+
+    def stats(self) -> TableStats:
+        """DBG summary numbers (reference: src/graph-builder.cpp:240-295).
+
+        "Total edges" reproduces the reference's ternary-precedence
+        accident: an edge slot counts once if either the fw or bw
+        counter is non-zero (reference: src/graph-builder.cpp:253-254).
+        """
+        return TableStats(total=int(self.cov.sum()),
+                          unique=int((self.cov == 1).sum()),
+                          distinct=len(self),
+                          edges=int(((self.fw > 0) | (self.bw > 0)).sum()))

@@ -1,0 +1,109 @@
+"""ctypes bindings for the native FASTX parser (builds on first use).
+
+The parser is host code: it turns FASTA/FASTQ (plain or gzip) into
+per-sequence uint8 code arrays.  The shared library is built with g++
+into the package's gitignored `_build/` directory, keyed on a hash of
+the source.  Without a compiler (or zlib) the callers fall back to the
+pure-Python parser in io/fastx.py.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from typing import List, Optional
+
+import numpy as np
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "kreeq_native.cpp")
+_BUILD = os.path.join(os.path.dirname(_HERE), "_build")
+_LIB = os.path.join(_BUILD, "libkreeq_native.so")
+_HASH = _LIB + ".srchash"  # content hash of _SRC the .so was built from
+
+_lib = None
+_tried = False
+
+
+def _src_hash() -> str:
+    with open(_SRC, "rb") as fh:
+        return hashlib.sha256(fh.read()).hexdigest()
+
+
+def _build() -> bool:
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-std=gnu++17", "-shared", "-fPIC", _SRC,
+           "-o", tmp, "-lz"]
+    try:
+        res = subprocess.run(cmd, capture_output=True, timeout=120)
+    except (OSError, subprocess.TimeoutExpired):
+        return False
+    if res.returncode != 0:
+        return False
+    os.replace(tmp, _LIB)
+    with open(_HASH, "w") as fh:
+        fh.write(_src_hash())
+    return True
+
+
+def _stale() -> bool:
+    """Rebuild keyed on source content hash (mtimes don't survive git)."""
+    if not os.path.exists(_LIB):
+        return True
+    try:
+        with open(_HASH) as fh:
+            return fh.read().strip() != _src_hash()
+    except OSError:
+        return True
+
+
+def get_lib() -> Optional[ctypes.CDLL]:
+    global _lib, _tried
+    if _lib is not None or _tried:
+        return _lib
+    _tried = True
+    if _stale() and not _build():
+        return None
+    try:
+        lib = ctypes.CDLL(_LIB)
+    except OSError:
+        return None
+    lib.kn_parse_fastx.restype = ctypes.c_void_p
+    lib.kn_parse_fastx.argtypes = [ctypes.c_char_p]
+    lib.kn_num_seqs.restype = ctypes.c_uint64
+    lib.kn_num_seqs.argtypes = [ctypes.c_void_p]
+    lib.kn_num_codes.restype = ctypes.c_uint64
+    lib.kn_num_codes.argtypes = [ctypes.c_void_p]
+    lib.kn_codes.restype = ctypes.POINTER(ctypes.c_uint8)
+    lib.kn_codes.argtypes = [ctypes.c_void_p]
+    lib.kn_offsets.restype = ctypes.POINTER(ctypes.c_uint64)
+    lib.kn_offsets.argtypes = [ctypes.c_void_p]
+    lib.kn_free.argtypes = [ctypes.c_void_p]
+    _lib = lib
+    return _lib
+
+
+def parse_fastx(path: str) -> Optional[List[np.ndarray]]:
+    """Parse FASTA/FASTQ(.gz) into per-sequence uint8 code arrays."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    h = lib.kn_parse_fastx(path.encode())
+    if not h:
+        return None
+    try:
+        n_seqs = lib.kn_num_seqs(h)
+        n_codes = lib.kn_num_codes(h)
+        if n_seqs == 0:
+            return []
+        codes = np.ctypeslib.as_array(lib.kn_codes(h),
+                                      shape=(n_codes,)).copy()
+        offsets = np.ctypeslib.as_array(lib.kn_offsets(h),
+                                        shape=(n_seqs,)).copy()
+        bounds = np.append(offsets, np.uint64(n_codes)).astype(np.int64)
+        return [codes[bounds[i]:bounds[i + 1]] for i in range(n_seqs)]
+    finally:
+        lib.kn_free(h)

@@ -1,0 +1,160 @@
+"""Wrappers of the CUDA kernels of the main path.
+
+Each wrapper dispatches on the device of its tensors: CPU tensors go to
+the plain PyTorch version (ops/kmers.py, ops/validate.py), CUDA tensors
+to the hand-written kernel (ops/csrc/), and any other device raises.
+On CUDA the wrapper checks its inputs, allocates every output and
+scratch buffer, launches on the current stream and raises if the launch
+failed; nothing falls back to the plain version.  LAUNCHES counts the
+kernel launches of each wrapper, so a run can show that it went through
+the kernels.
+
+  count_runs_cuda  <- csrc/count_runs.cu    (TPU: pallas_kernels._kernel)
+  merge_sorted_cuda <- csrc/merge_sorted.cu (TPU: _merge_kernel2)
+  probe_qv_cuda    <- csrc/probe_qv.cu      (TPU: _probe_kernel_ind)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kmers as K
+from . import validate as V
+
+LAUNCHES = {"count": 0, "merge": 0, "probe_qv": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises on a mix or
+    on any other device."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    return True
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {dtype} tensor "
+                         f"of shape {tuple(shape)}, got {t.dtype} "
+                         f"{tuple(t.shape)} (contiguous: "
+                         f"{t.is_contiguous()})")
+
+
+def _check_table(name, keys, cov, fw, bw) -> int:
+    n = keys.shape[0]
+    _check(name + " keys", keys, torch.int64, (n,))
+    _check(name + " cov", cov, torch.int64, (n,))
+    _check(name + " fw", fw, torch.int64, (n, 4))
+    _check(name + " bw", bw, torch.int64, (n, 4))
+    return n
+
+
+def _ptrs(*tensors: torch.Tensor):
+    return [t.data_ptr() for t in tensors]
+
+
+def _launch(name: str, fn, *args) -> None:
+    from ._build import library
+
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = fn(*args, stream)
+    if rc != 0:
+        msg = library().kq_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
+
+
+def count_runs_cuda(skeys, sedges):
+    """Run-aggregation of key-sorted records (see kmers.count_runs for
+    the contract).  CUDA tensors: the count_runs kernel."""
+    if not _on_cuda("count_runs", skeys, sedges):
+        return K.count_runs(skeys, sedges)
+    from ._build import library
+
+    lib = library()
+    p = skeys.shape[0]
+    _check("count_runs skeys", skeys, torch.int64, (p,))
+    _check("count_runs sedges", sedges, torch.uint8, (p,))
+    dev = skeys.device
+    okeys = torch.empty(p, dtype=torch.int64, device=dev)
+    ocov = torch.empty(p, dtype=torch.int64, device=dev)
+    ofw = torch.empty((p, 4), dtype=torch.int64, device=dev)
+    obw = torch.empty((p, 4), dtype=torch.int64, device=dev)
+    n = torch.empty((), dtype=torch.int64, device=dev)
+    scratch = torch.empty(max(-(-p // lib.kq_tile()), 1), dtype=torch.int64,
+                          device=dev)
+    _launch("count_runs", lib.kq_count_runs, skeys.data_ptr(),
+            sedges.data_ptr(), p, *_ptrs(okeys, ocov, ofw, obw, n, scratch))
+    LAUNCHES["count"] += 1
+    return okeys, ocov, ofw, obw, n
+
+
+def count_sorted_cuda(keys, edges, valid):
+    """kmers.count_sorted with the run-aggregation on the kernel for
+    CUDA tensors: the torch.sort stays outside the kernel."""
+    return count_runs_cuda(*K.sort_records(keys, edges, valid))
+
+
+def merge_sorted_cuda(keys_a, cov_a, fw_a, bw_a, keys_b, cov_b, fw_b, bw_b):
+    """Union of two sorted unique tables (see kmers.merge_sorted for the
+    contract).  CUDA tensors: the merge_sorted kernel."""
+    a = (keys_a, cov_a, fw_a, bw_a)
+    b = (keys_b, cov_b, fw_b, bw_b)
+    if not _on_cuda("merge_sorted", *a, *b):
+        return K.merge_sorted(*a, *b)
+    from ._build import library
+
+    lib = library()
+    na = _check_table("merge_sorted a", *a)
+    nb = _check_table("merge_sorted b", *b)
+    m = na + nb
+    dev = keys_a.device
+    mkeys = torch.empty(m, dtype=torch.int64, device=dev)
+    mvals = torch.empty((m, 9), dtype=torch.int64, device=dev)
+    scratch = torch.empty(max(-(-m // lib.kq_tile()), 1), dtype=torch.int64,
+                          device=dev)
+    okeys = torch.empty(m, dtype=torch.int64, device=dev)
+    ocov = torch.empty(m, dtype=torch.int64, device=dev)
+    ofw = torch.empty((m, 4), dtype=torch.int64, device=dev)
+    obw = torch.empty((m, 4), dtype=torch.int64, device=dev)
+    n = torch.empty((), dtype=torch.int64, device=dev)
+    _launch("merge_sorted", lib.kq_merge_sorted, *_ptrs(*a), na, *_ptrs(*b),
+            nb, *_ptrs(mkeys, mvals, scratch, okeys, ocov, ofw, obw, n))
+    LAUNCHES["merge"] += 1
+    return okeys, ocov, ofw, obw, n
+
+
+def probe_qv_cuda(tkeys, tcov, tfw, tbw, qkeys, qctx, lead: int, hi: int,
+                  cutoff: int):
+    """(#missing, #edge-missing) over query positions lead <= i < hi as
+    int64[2] (see validate.qv_sums for the contract).  CUDA tensors:
+    the probe_qv kernel."""
+    tab = (tkeys, tcov, tfw, tbw)
+    if not _on_cuda("probe_qv", *tab, qkeys, qctx):
+        return V.qv_sums(*tab, qkeys, qctx, lead, hi, cutoff)
+    from ._build import library
+
+    lib = library()
+    t = _check_table("probe_qv table", *tab)
+    q = qkeys.shape[0]
+    _check("probe_qv qkeys", qkeys, torch.int64, (q,))
+    _check("probe_qv qctx", qctx, torch.uint8, (q,))
+    lead = max(int(lead), 0)
+    count = max(min(int(hi), q) - lead, 0)
+    out = torch.empty(2, dtype=torch.int64, device=qkeys.device)
+    _launch("probe_qv", lib.kq_probe_qv, *_ptrs(*tab), t,
+            *_ptrs(qkeys, qctx), lead, count, max(int(cutoff), 1),
+            out.data_ptr())
+    LAUNCHES["probe_qv"] += 1
+    return out

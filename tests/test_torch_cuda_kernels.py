@@ -1,0 +1,161 @@
+"""PyTorch port, CUDA kernels against their plain versions on the card,
+on edge cases: empty input, all-SENTINEL input, one key repeated 10^6
+times, saturation, k = 32, SENTINEL queries.  Needs a CUDA device (the
+`gpu` marker); run on the card with
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m gpu
+
+(--noconftest: tests/conftest.py configures JAX, which the port does not
+need.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _same(got, want):
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+def _count_both(skeys, sedges):
+    from kreeq_tpu_torch.ops import kmers as K
+    from kreeq_tpu_torch.ops.kernels import count_runs_cuda
+
+    _same(count_runs_cuda(skeys, sedges), K.count_runs(skeys, sedges))
+
+
+def test_count_empty_and_all_sentinel(cuda):
+    from kreeq_tpu_torch.constants import SENTINEL
+
+    for p in (0, 1, 1000):
+        _count_both(torch.full((p,), SENTINEL, dtype=torch.int64,
+                               device=cuda),
+                    torch.zeros(p, dtype=torch.uint8, device=cuda))
+
+
+def test_count_one_key_repeated(cuda):
+    """10^6 records of one key span thousands of blocks."""
+    rng = np.random.default_rng(0)
+    p = 1_000_000
+    keys = torch.full((p + 5,), 42, dtype=torch.int64, device=cuda)
+    keys[:3] = torch.tensor([-7, 0, 1], device=cuda)
+    keys, _ = torch.sort(keys)
+    edges = torch.from_numpy(rng.integers(0, 256, p + 5).astype(
+        np.uint8)).to(cuda)
+    _count_both(keys, edges)
+
+
+@pytest.mark.parametrize("k,nbases", [(21, 4), (32, 4), (32, 2)])
+def test_count_sorted_random_chunks(cuda, k, nbases):
+    from kreeq_tpu_torch.ops import kmers as K
+    from kreeq_tpu_torch.ops.kernels import count_sorted_cuda
+
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, nbases, 300_000).astype(np.uint8)
+    codes[rng.random(codes.shape[0]) < 0.01] = 4
+    keys, _isfw, edges, valid = K.kmer_positions(
+        torch.from_numpy(codes).to(cuda), k)
+    _same(count_sorted_cuda(keys, edges, valid),
+          K.count_sorted(keys, edges, valid))
+
+
+def _table(rng, n, device, shared=(), top=None):
+    """A sorted unique table of about n random keys plus `shared`, with
+    a SENTINEL tail; counters random, or `top` in cov and fw."""
+    from kreeq_tpu_torch.constants import SENTINEL
+
+    keys = np.unique(np.concatenate([
+        rng.integers(-(1 << 63), SENTINEL, n, dtype=np.int64),
+        np.asarray(shared, np.int64)]))
+    t = keys.shape[0]
+    cov = rng.integers(0, 1 << 32, t, dtype=np.int64)
+    fw = rng.integers(0, 1 << 32, (t, 4), dtype=np.int64)
+    bw = rng.integers(0, 1 << 32, (t, 4), dtype=np.int64)
+    if top is not None:
+        cov[:] = top
+        fw[:] = top
+    pad = 100
+    keys = np.concatenate([keys, np.full(pad, SENTINEL, np.int64)])
+    cov = np.concatenate([cov, np.zeros(pad, np.int64)])
+    fw = np.concatenate([fw, np.zeros((pad, 4), np.int64)])
+    bw = np.concatenate([bw, np.zeros((pad, 4), np.int64)])
+    return tuple(torch.from_numpy(a).to(device) for a in (keys, cov, fw, bw))
+
+
+def _merge_both(a, b):
+    from kreeq_tpu_torch.ops import kmers as K
+    from kreeq_tpu_torch.ops.kernels import merge_sorted_cuda
+
+    _same(merge_sorted_cuda(*a, *b), K.merge_sorted(*a, *b))
+
+
+def test_merge_random_saturating_and_tailed(cuda):
+    rng = np.random.default_rng(1)
+    a = _table(rng, 200_000, cuda, top=0xFFFFFFF0)
+    # b shares every second key of a; the shared rows saturate
+    b = _table(rng, 150_000, cuda, shared=a[0][:-100:2].cpu().numpy(),
+               top=0xFFFFFFF0)
+    _merge_both(a, b)
+    _merge_both(b, a)
+
+
+def test_merge_empty_and_all_sentinel(cuda):
+    from kreeq_tpu_torch.constants import SENTINEL
+
+    rng = np.random.default_rng(2)
+    a = _table(rng, 1000, cuda)
+
+    def sentinel_table(n):
+        return (torch.full((n,), SENTINEL, dtype=torch.int64, device=cuda),
+                torch.zeros(n, dtype=torch.int64, device=cuda),
+                torch.zeros((n, 4), dtype=torch.int64, device=cuda),
+                torch.zeros((n, 4), dtype=torch.int64, device=cuda))
+
+    for other in (sentinel_table(0), sentinel_table(777)):
+        _merge_both(a, other)
+        _merge_both(other, a)
+    _merge_both(sentinel_table(0), sentinel_table(0))
+    _merge_both(sentinel_table(5), sentinel_table(3))
+
+
+@pytest.mark.parametrize("k,cutoff", [(21, 0), (32, 3)])
+def test_probe_qv_matches_plain(cuda, k, cutoff):
+    from kreeq_tpu_torch.constants import SENTINEL
+    from kreeq_tpu_torch.ops import kmers as K
+    from kreeq_tpu_torch.ops import validate as V
+    from kreeq_tpu_torch.ops.kernels import probe_qv_cuda
+
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, 200_000).astype(np.uint8)
+    reads = np.concatenate([genome] * 3 + [genome[:50_000]])
+    keys, _isfw, edges, valid = K.kmer_positions(
+        torch.from_numpy(reads).to(cuda), k)
+    tab = K.count_sorted(keys, edges, valid)[:4]  # SENTINEL-tailed
+    asm = genome.copy()
+    asm[rng.integers(0, asm.shape[0], 400)] ^= 1
+    asm[rng.integers(0, asm.shape[0], 50)] = 4
+    qkeys, qctx = V._extract_ctx_qv(torch.from_numpy(asm).to(cuda), k)
+    assert bool((qkeys == SENTINEL).any())  # SENTINEL queries present
+    q = qkeys.shape[0]
+    for lead, hi in ((0, q), (1, q - 1), (5, q + 10), (q, q + 3)):
+        got = probe_qv_cuda(*tab, qkeys, qctx, lead, hi, cutoff)
+        want = V.qv_sums(*tab, qkeys, qctx, lead, hi, cutoff)
+        _same((got,), (want,))
+    empty = tuple(t[:0] for t in tab)
+    _same((probe_qv_cuda(*empty, qkeys, qctx, 0, q, cutoff),),
+          (V.qv_sums(*empty, qkeys, qctx, 0, q, cutoff),))

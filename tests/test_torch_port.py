@@ -1,0 +1,76 @@
+"""PyTorch port: package boundaries and device selection."""
+
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+before = set(sys.modules)
+import kreeq_tpu_torch
+for m in pkgutil.walk_packages(kreeq_tpu_torch.__path__, "kreeq_tpu_torch."):
+    importlib.import_module(m.name)
+new = set(sys.modules) - before
+bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib",
+                                                    "kreeq_tpu"))
+print(len([m for m in new if m.startswith("kreeq_tpu_torch.")]), bad)
+"""
+
+
+def test_port_imports_no_jax():
+    """Every module of the port imports without jax or kreeq_tpu."""
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    count, bad = res.stdout.split(" ", 1)
+    assert int(count) >= 15
+    assert bad.strip() == "[]"
+
+
+def test_no_cuda_and_no_platform_raises(monkeypatch):
+    """Without a CUDA device the port stops instead of running on the
+    CPU unasked."""
+    from kreeq_tpu_torch import device as D
+    from kreeq_tpu_torch.cli.main import run
+
+    monkeypatch.delenv("KREEQ_TPU_PLATFORM", raising=False)
+    monkeypatch.setattr(D.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        D.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(["kreeq", "validate", "-r", __file__])
+    monkeypatch.setenv("KREEQ_TPU_PLATFORM", "cpu")
+    assert D.resolve_device() == torch.device("cpu")
+    monkeypatch.setenv("KREEQ_TPU_PLATFORM", "tpu")
+    with pytest.raises(ValueError, match="not a platform"):
+        D.resolve_device()
+
+
+@pytest.mark.parametrize("extra,what", [
+    (["-d", __file__], "-d"),
+    (["-o", "x.hist"], "-o"),
+    (["--trace-dir", "t"], "--trace-dir"),
+    (["--detect-anomalies", "a.bed"], "--detect-anomalies"),
+])
+def test_unported_options_raise(monkeypatch, extra, what):
+    from kreeq_tpu_torch.cli.main import run
+
+    monkeypatch.setenv("KREEQ_TPU_PLATFORM", "cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        run(["kreeq", "validate", "-r", __file__, *extra])
+
+
+def test_wrappers_refuse_other_devices():
+    from kreeq_tpu_torch.ops.kernels import count_runs_cuda
+
+    keys = torch.zeros(4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        count_runs_cuda(keys, torch.zeros(4, dtype=torch.uint8,
+                                          device="meta"))
