@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (kreeq_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--profile DIR]
 
 Phases, each of which raises on failure (the process then exits
 non-zero and never prints the final line):
@@ -10,14 +10,27 @@ non-zero and never prints the final line):
   3. kernels against their plain PyTorch versions on the card, at the
      main path's shapes (one 8M-base read chunk; the two largest parts
      of a build's tree merge; one full 4,194,304-position validate
-     window), exact equality, median times with CUDA events;
+     window for each probe), exact equality, median times with CUDA
+     events;
   4. end to end: `kreeq validate -r reads.fq -f asm.fa -k 21` through
      the port's CLI on the card, on a generated yeast-scale assembly
      (planted SNV/INS/DEL, an N run, IUPAC bases, short contigs) and
-     30x of 150-bp reads at 0.2% substitutions; every kernel must have
-     launched, and Total must equal the assembly's k-mer count;
+     30x of 150-bp reads at 0.2% substitutions; every kernel of the path
+     must have launched, and Total must equal the assembly's k-mer
+     count;
   5. the whole slice at 0.5 Mbp on the card and on the CPU (plain
-     versions): stdout must be byte-equal.
+     versions): stdout and every output file (-o x.kreeq, x.bed, x.kwig,
+     x.bkwig, x.hist, `union`) must be byte-equal;
+  6. DB reuse with per-base tracks, end to end on phase 4's inputs:
+     `validate -r reads.fq -k 21 -o reads.kreeq`, then `validate -d
+     reads.kreeq -f asm.fa -o asm.bkwig`, then the decompressor's
+     `inflate`; the QV rows must equal phase 4's, the .bkwig must hold
+     12 bytes per assembly base after its index, and every kernel of
+     each path must have launched;
+  7. only with --profile DIR: a cProfile of `write_kreeq` on phase 6's
+     DB, loaded back onto the card (the rewritten DB must be
+     byte-equal), and a torch.profiler trace of a second, warm `-d -f -o
+     asm.bkwig` run; summaries and the trace go to DIR.
 The second-to-last line is a JSON object with each kernel's launches,
 error and times; the last is {"ok": true, "device": {...}}.  Needs a
 CUDA device; imports no JAX.
@@ -31,6 +44,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -51,13 +65,18 @@ CHUNK = 1 << 23  # bases of one read chunk (KREEQ_TPU_CHUNK default)
 CHROM_SHARES = (0.42, 0.25, 0.2, 0.13)
 LUT = np.frombuffer(b"ACGTN", np.uint8)
 
+# (name, LAUNCHES key, source, TPU kernel, the main path whose launches
+# the JSON line reports: phase 4's `-r -f` run or phase 6's track run)
 KERNELS = (
     ("count_runs", "count", "kreeq_tpu_torch/ops/csrc/count_runs.cu",
-     "kreeq_tpu/ops/pallas_kernels.py:59"),
+     "kreeq_tpu/ops/pallas_kernels.py:59", "validate"),
     ("merge_sorted", "merge", "kreeq_tpu_torch/ops/csrc/merge_sorted.cu",
-     "kreeq_tpu/ops/pallas_kernels.py:1223"),
+     "kreeq_tpu/ops/pallas_kernels.py:1223", "validate"),
     ("probe_qv", "probe_qv", "kreeq_tpu_torch/ops/csrc/probe_qv.cu",
-     "kreeq_tpu/ops/pallas_kernels.py:844"),
+     "kreeq_tpu/ops/pallas_kernels.py:844", "validate"),
+    ("probe_select", "probe_select",
+     "kreeq_tpu_torch/ops/csrc/probe_select.cu",
+     "kreeq_tpu/ops/pallas_kernels.py:696", "tracks"),
 )
 
 
@@ -191,6 +210,27 @@ def run_cli(argv):
     return buf.getvalue()
 
 
+def check_launches(launches, keys, path: str) -> None:
+    for key in keys:
+        if launches[key] <= 0:
+            raise AssertionError(f"kernel {key} never launched on the "
+                                 f"{path} path")
+
+
+def same_output(a: str, b: str) -> None:
+    """A file or a `.kreeq` directory, byte for byte."""
+    if os.path.isdir(a):
+        names = sorted(os.listdir(a))
+        if not names or names != sorted(os.listdir(b)):
+            raise AssertionError(f"{a} and {b} hold other files")
+        for name in names:
+            same_output(os.path.join(a, name), os.path.join(b, name))
+        return
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError(f"{a} and {b} differ")
+
+
 # ---------------------------------------------------------------------------
 # phases
 
@@ -198,12 +238,15 @@ def run_cli(argv):
 def phase_card():
     import torch
 
+    # no number of this run may stand without the card's name and limit
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
-        else f"nvidia-smi failed: {smi.stderr.strip()}"
+    if smi.returncode != 0 or not smi.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed ({smi.returncode}): "
+                           f"{smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
     log(card)
     log(f"[1 card] {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
@@ -311,7 +354,18 @@ def phase_kernels(fq: str, fa: str, device):
                             (V.qv_sums(*args),)),
         ms=cuda_ms(lambda: kernels.probe_qv_cuda(*args)),
         plain_ms=cuda_ms(lambda: V.qv_sums(*args)))
-    for name, _key, _src, _tpu in KERNELS:
+    # the track path probes every position of the window buffer: the
+    # window plus one position of context on each side
+    skeys, _isfw, _valid, sctx = V._extract_ctx(wbuf, K)
+    sargs = (*tab, skeys, sctx)
+    res["probe_select"] = dict(
+        shape=f"q={skeys.shape[0]} t={len(table)}",
+        max_abs_err=compare("probe_select",
+                            kernels.probe_select_cuda(*sargs),
+                            V.probe_select(*sargs)),
+        ms=cuda_ms(lambda: kernels.probe_select_cuda(*sargs)),
+        plain_ms=cuda_ms(lambda: V.probe_select(*sargs)))
+    for name, *_rest in KERNELS:
         r = res[name]
         log(f"    {name:13s} {r['shape']:28s} kernel {r['ms']:9.3f} ms  "
             f"plain {r['plain_ms']:9.3f} ms  exact")
@@ -356,43 +410,256 @@ def phase_end_to_end(fq, fa, read_bases, kcount, ingest_s, device):
             raise AssertionError(f"implausible QV row {row}")
     if not lines[0].startswith("DBG Summary statistics:"):
         raise AssertionError("no DB summary")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
-    return launches
+    check_launches(launches, ("count", "merge", "probe_qv"), "validate")
+    return launches, lines[-2:]
 
 
 def phase_cuda_vs_cpu(seed: int):
+    """Every ported command and output at 0.5 Mbp, on the card and on
+    the CPU; bed/csvtable write k values per base, so they stay at this
+    size."""
     from kreeq_tpu_torch.core.dbg import DBG
 
     rng = np.random.default_rng(seed + 1)
     with tempfile.TemporaryDirectory() as tmp:
         fa, fq, _rb, _kc = make_inputs(rng, 0.5, 30, tmp)
-        argv = ["kreeq", "validate", "-r", fq, "-f", fa, "-k", str(K)]
+        other = os.path.join(tmp, "other")
+        os.mkdir(other)
+        _fa2, fq2, _rb2, _kc2 = make_inputs(rng, 0.2, 10, other)
+
+        def commands(out):
+            """argv of each command, with its output written under
+            `out`: the DBs first, since later commands read them."""
+            a, b = (os.path.join(out, f"{x}.kreeq") for x in "ab")
+            yield ["kreeq", "validate", "-r", fq, "-f", fa, "-k", str(K)]
+            yield ["kreeq", "validate", "-r", fq, "-k", str(K), "-o", a]
+            yield ["kreeq", "validate", "-r", fq2, "-k", str(K), "-o", b]
+            for ext in ("bed", "kwig", "bkwig", "hist"):
+                yield ["kreeq", "validate", "-d", a, "-f", fa, "-o",
+                       os.path.join(out, f"asm.{ext}")]
+            yield ["kreeq", "union", "-d", a, b, "-o",
+                   os.path.join(out, "ab.kreeq")]
+
+        outs, stdouts, secs = {}, {}, {}
         old = DBG.VALIDATE_WINDOW
         DBG.VALIDATE_WINDOW = 100_003  # window seams at this size too
         try:
-            os.environ.pop("KREEQ_TPU_PLATFORM", None)
-            t0 = time.perf_counter()
-            gpu = run_cli(argv)
-            t1 = time.perf_counter()
-            os.environ["KREEQ_TPU_PLATFORM"] = "cpu"
-            cpu = run_cli(argv)
-            t2 = time.perf_counter()
+            for platform in ("cuda", "cpu"):
+                os.environ["KREEQ_TPU_PLATFORM"] = platform
+                outs[platform] = os.path.join(tmp, platform)
+                os.mkdir(outs[platform])
+                t0 = time.perf_counter()
+                stdouts[platform] = [run_cli(argv) for argv in
+                                     commands(outs[platform])]
+                secs[platform] = time.perf_counter() - t0
         finally:
             os.environ.pop("KREEQ_TPU_PLATFORM", None)
             DBG.VALIDATE_WINDOW = old
-    if gpu != cpu:
-        raise AssertionError(f"CUDA and CPU stdout differ:\n{gpu}\n---\n"
-                             f"{cpu}")
-    log(f"[5 cuda vs cpu] 0.5 Mbp, 30x: stdout byte-equal "
-        f"(cuda {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s)")
+        for argv, gpu, cpu in zip(commands(""), stdouts["cuda"],
+                                  stdouts["cpu"]):
+            if gpu != cpu:
+                raise AssertionError(f"{argv[1:]}: CUDA and CPU stdout "
+                                     f"differ:\n{gpu}\n---\n{cpu}")
+        names = sorted(os.listdir(outs["cuda"]))
+        if names != ["a.kreeq", "ab.kreeq", "asm.bed", "asm.bkwig",
+                     "asm.hist", "asm.kwig", "b.kreeq"]:
+            raise AssertionError(f"unexpected outputs {names}")
+        same_output(outs["cuda"], outs["cpu"])
+    log(f"[5 cuda vs cpu] 0.5 Mbp, 30x: stdout of {len(stdouts['cpu'])} "
+        f"commands and {', '.join(names)} byte-equal (cuda "
+        f"{secs['cuda']:.2f} s, cpu {secs['cpu']:.2f} s)")
+
+
+def phase_db_tracks(fq, fa, tmp, qv_rows, device):
+    """DB reuse and per-base tracks at full width: build and keep the
+    DB, validate the assembly against it with a .bkwig track, inflate
+    the track.  Each CLI run is a main path: launch counts are set to 0
+    just before it and read just after."""
+    import torch
+
+    from kreeq_tpu_torch.cli.decompressor import BkwigIndex, read_index
+    from kreeq_tpu_torch.cli.decompressor import run as decompress
+    from kreeq_tpu_torch.ops import kernels
+    from kreeq_tpu_torch.utils import log as klog
+
+    os.environ.pop("KREEQ_TPU_PLATFORM", None)
+    db = os.path.join(tmp, "reads.kreeq")
+    bkwig = os.path.join(tmp, "asm.bkwig")
+
+    def path(argv, keys, name):
+        kernels.reset_launches()
+        klog._phases.clear()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        out = run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        check_launches(launches, keys, name)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        return out, launches, dict(klog._phases), wall, peak
+
+    _out, l_db, ph_db, wall_db, peak_db = path(
+        ["kreeq", "validate", "-r", fq, "-k", str(K), "-o", db],
+        ("count", "merge"), "DB build")
+    db_mib = sum(os.path.getsize(os.path.join(db, f))
+                 for f in os.listdir(db)) / 2**20
+    out, l_tr, ph_tr, wall_tr, peak_tr = path(
+        ["kreeq", "validate", "-d", db, "-f", fa, "-o", bkwig],
+        ("probe_select",), "tracks")
+    rows = out.splitlines()[-2:]
+    if rows != qv_rows:
+        raise AssertionError(f"QV rows of the DB-reuse track run {rows} "
+                             f"differ from the -r run's {qv_rows}")
+
+    with open(bkwig, "rb") as fh:
+        data = fh.read()
+    idx = BkwigIndex()
+    idx.k = data[0]
+    read_index(data, 1, idx)
+    bases = sum(ln for comps in idx.paths.values()
+                for _bp, _abs, ln, _step in comps)
+    asm_bases = 0
+    with open(fa) as fh:
+        for line in fh:
+            if not line.startswith(">"):
+                s = line.strip()
+                asm_bases += len(s) - s.count("N") - s.count("n")
+    tail = len(data) - 1 - idx.index_byte_size
+    if idx.k != K or bases != asm_bases or tail != 12 * asm_bases:
+        raise AssertionError(f".bkwig: k {idx.k}, {bases} indexed bases, "
+                             f"{tail} data bytes for {asm_bases} "
+                             "assembly bases")
+    vals = np.frombuffer(data, "<u4", 3 * asm_bases,
+                         1 + idx.index_byte_size).reshape(-1, 3)
+    found = float((vals[:, 0] > 0).mean())
+    if not 0.9 < found < 1.0:
+        raise AssertionError(f"implausible share of found bases {found}")
+
+    inflated = os.path.join(tmp, "asm.inflated")
+    t0 = time.perf_counter()
+    with open(inflated, "w") as fh, contextlib.redirect_stdout(fh):
+        if decompress(["kreeq-decompressor", "inflate", "-i", bkwig]):
+            raise AssertionError("inflate failed")
+    inflate_s = time.perf_counter() - t0
+    with open(inflated) as fh:
+        first = fh.readline().strip()
+        nrows = sum(1 for line in fh if not line.startswith("fixedStep"))
+    if first != str(K) or nrows != asm_bases:
+        raise AssertionError(f"inflate: k line {first!r}, {nrows} rows "
+                             f"for {asm_bases} bases")
+
+    for row in rows:
+        log("    | " + row)
+    log(f"[6 db + tracks] `-r -o reads.kreeq` wall {wall_db:.2f} s: build "
+        f"{ph_db['build k-mer DB']:.2f} s, DB write "
+        f"{ph_db['write output']:.2f} s ({len(os.listdir(db))} files, "
+        f"{db_mib:.0f} MiB), peak device memory {peak_db:.2f} GiB; "
+        f"launches {l_db}")
+    log(f"    `-d -f -o asm.bkwig` wall {wall_tr:.2f} s: DB load "
+        f"{ph_tr['load k-mer DB']:.2f} s, load genome "
+        f"{ph_tr['load genome']:.2f} s, tracks (validate) "
+        f"{ph_tr['validate']:.2f} s, bkwig write "
+        f"{ph_tr['write output']:.2f} s ({len(data) / 2**20:.0f} MiB, "
+        f"{asm_bases} bases, {found:.4f} found), peak device memory "
+        f"{peak_tr:.2f} GiB; launches {l_tr}")
+    log(f"    inflate {inflate_s:.2f} s ({nrows} rows); QV rows equal "
+        "phase 4's")
+    return l_tr
+
+
+def _busy_s(events) -> float:
+    """Seconds in which the card ran at least one kernel, copy or set,
+    from the device events of a chrome trace."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, end = 0.0, None
+    for lo, hi in spans:
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    return busy / 1e6
+
+
+def phase_profile(fa, tmp, out_dir, device):
+    """Where the time of phase 6 goes: the DB writer on the host, and the
+    card's share of a warm track run."""
+    import cProfile
+    import pstats
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kreeq_tpu_torch.io.kreeqdb import read_kreeq, write_kreeq
+
+    os.makedirs(out_dir, exist_ok=True)
+    db = os.path.join(tmp, "reads.kreeq")
+    table = read_kreeq(db, device)
+    again = os.path.join(tmp, "again.kreeq")
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    write_kreeq(again, table)
+    prof.disable()
+    write_s = time.perf_counter() - t0
+    same_output(db, again)
+    with open(os.path.join(out_dir, "db_write_profile.txt"), "w") as fh:
+        for order in ("tottime", "cumulative"):
+            pstats.Stats(prof, stream=fh).sort_stats(order).print_stats(30)
+    stats = pstats.Stats(prof).stats
+    own = sorted(((tt, nc, fn) for (_f, _l, fn), (_cc, nc, tt, _ct, _c)
+                  in stats.items()), reverse=True)
+    cum = {fn: ct for (_f, _l, fn), (_cc, _nc, _tt, ct, _c) in stats.items()}
+    log(f"[7 profile] write_kreeq of {len(table)} rows under cProfile "
+        f"{write_s:.2f} s, rewritten DB byte-equal; inside _write_phmap "
+        f"{cum['_write_phmap']:.2f} s "
+        f"({cum['_write_phmap'] / write_s:.1%}); own time:")
+    for tt, nc, fn in own[:8]:
+        log(f"    {tt:7.2f} s {tt / write_s:6.1%} {nc:8d} calls  {fn}")
+    del table
+    shutil.rmtree(again)
+
+    bkwig = os.path.join(tmp, "asm.again.bkwig")
+    argv = ["kreeq", "validate", "-d", db, "-f", fa, "-o", bkwig]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tprof:
+        t0 = time.perf_counter()
+        run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    trace = os.path.join(out_dir, "tracks_trace.json")
+    tprof.export_chrome_trace(trace)
+    with open(trace) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not events:
+        raise AssertionError("the trace holds no device event")
+    busy = _busy_s(events)
+    by_name = {}
+    for e in events:
+        tot, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (tot + e["dur"] / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    with open(os.path.join(out_dir, "tracks_profile.txt"), "w") as fh:
+        fh.write(f"wall {wall:.3f} s, device busy {busy:.4f} s, idle "
+                 f"{1 - busy / wall:.2%}\n")
+        for name, (ms, n) in top:
+            fh.write(f"{ms:10.3f} ms {n:6d}  {name}\n")
+    log(f"    warm `-d -f -o asm.bkwig` under torch.profiler: wall "
+        f"{wall:.2f} s, device busy {busy:.4f} s, idle "
+        f"{1 - busy / wall:.2%}; device time by name:")
+    for name, (ms, n) in top[:8]:
+        log(f"    {ms:9.3f} ms {n:5d}x  {name[:90]}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", metavar="DIR",
+                    help="also profile the DB write and a warm track run "
+                    "(phase 7), writing summaries and a trace to DIR")
     args = ap.parse_args()
 
     import torch
@@ -404,6 +671,7 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
 
+    start = time.perf_counter()
     phase_card()
     phase_build()
     rng = np.random.default_rng(args.seed)
@@ -416,15 +684,21 @@ def main() -> int:
             f"{os.path.getsize(fq) / 2**20:.0f} MiB FASTQ, generated in "
             f"{time.perf_counter() - t0:.1f} s")
         res = phase_kernels(fq, fa, device)
-        launches = phase_end_to_end(fq, fa, read_bases, kcount,
-                                    res["ingest_s"], device)
-    phase_cuda_vs_cpu(args.seed)
+        launches = {}
+        launches["validate"], qv_rows = phase_end_to_end(
+            fq, fa, read_bases, kcount, res["ingest_s"], device)
+        phase_cuda_vs_cpu(args.seed)
+        launches["tracks"] = phase_db_tracks(fq, fa, tmp, qv_rows, device)
+        if args.profile:
+            phase_profile(fa, tmp, args.profile, device)
+    log(f"[done] all phases in {time.perf_counter() - start:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[key], "max_abs_err": res[name]["max_abs_err"],
-         "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"]}
-        for name, key, src, tpu in KERNELS]}))
+         "launches": launches[path][key],
+         "max_abs_err": res[name]["max_abs_err"], "ms": res[name]["ms"],
+         "plain_ms": res[name]["plain_ms"]}
+        for name, key, src, tpu, path in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,21 +6,23 @@ on one device, in the port's dtypes (constants.py).  The build counts
 read chunks and tree-merges the chunk tables on the device through the
 kernel wrappers of ops/kernels.py.
 
-Not yet ported: `.kreeq` I/O, the host-merge spill for tables beyond
-device memory, table windows, build checkpoints and sharded builds.
-A merge that would not fit in device memory raises instead.
+Not yet ported: the host-merge spill for tables beyond device memory,
+table windows, build checkpoints and sharded builds.  A merge that
+would not fit in device memory raises instead.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Iterable
+from typing import Dict, Iterable
 
 import numpy as np
 import torch
 
 from ..constants import keys_from_u64, keys_to_u64
+
+MAP_COUNT = 128  # on-disk partition count, pinned by .kreeq/.index files
 
 # device bytes a merge of m rows allocates: the merged buffer (8 B key +
 # 72 B counters) and the output (80 B)
@@ -111,6 +113,7 @@ class TableStats:
     unique: int
     distinct: int
     edges: int
+    histogram: Dict[int, int]  # cov -> rows with that cov
 
     def missing(self, k: int) -> int:
         return 4 ** k - self.distinct
@@ -199,7 +202,26 @@ class KmerTable:
         accident: an edge slot counts once if either the fw or bw
         counter is non-zero (reference: src/graph-builder.cpp:253-254).
         """
+        vals, counts = torch.unique(self.cov, return_counts=True)
         return TableStats(total=int(self.cov.sum()),
                           unique=int((self.cov == 1).sum()),
                           distinct=len(self),
-                          edges=int(((self.fw > 0) | (self.bw > 0)).sum()))
+                          edges=int(((self.fw > 0) | (self.bw > 0)).sum()),
+                          histogram=dict(zip(vals.tolist(),
+                                             counts.tolist())))
+
+    def merge(self, other: "KmerTable") -> "KmerTable":
+        """Union with saturating adds on the table's device (replaces
+        `kreeq union`, reference: src/graph-builder.cpp:297-351).  A
+        union that would not fit in device memory raises (the sharded
+        and host-spill unions are not yet ported)."""
+        from ..ops.kernels import merge_sorted_cuda
+
+        if len(self) == 0:
+            return other
+        if len(other) == 0:
+            return self
+        _check_fits(len(self) + len(other), self.device)
+        part = merge_sorted_cuda(self.keys, self.cov, self.fw, self.bw,
+                                 other.keys, other.cov, other.fw, other.bw)
+        return KmerTable(self.k, *TreeMerger._trim(part)[:4])

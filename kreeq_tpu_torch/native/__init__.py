@@ -1,10 +1,11 @@
-"""ctypes bindings for the native FASTX parser (builds on first use).
+"""ctypes bindings for the native host helpers (builds on first use).
 
-The parser is host code: it turns FASTA/FASTQ (plain or gzip) into
-per-sequence uint8 code arrays.  The shared library is built with g++
+Host code only: the FASTX parser turns FASTA/FASTQ (plain or gzip) into
+per-sequence uint8 code arrays; the phmap helpers parse and place the
+records of `.kreeq` archives.  The shared library is built with g++
 into the package's gitignored `_build/` directory, keyed on a hash of
 the source.  Without a compiler (or zlib) the callers fall back to the
-pure-Python parser in io/fastx.py.
+pure-Python code in io/fastx.py and io/kreeqdb.py.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -82,6 +83,21 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.kn_offsets.restype = ctypes.POINTER(ctypes.c_uint64)
     lib.kn_offsets.argtypes = [ctypes.c_void_p]
     lib.kn_free.argtypes = [ctypes.c_void_p]
+
+    lib.kn_parse_phmap.restype = ctypes.c_void_p
+    lib.kn_parse_phmap.argtypes = [ctypes.POINTER(ctypes.c_uint8),
+                                   ctypes.c_uint64, ctypes.c_int]
+    lib.kn_phmap_count.restype = ctypes.c_uint64
+    lib.kn_phmap_count.argtypes = [ctypes.c_void_p]
+    lib.kn_phmap_keys.restype = ctypes.POINTER(ctypes.c_uint64)
+    lib.kn_phmap_keys.argtypes = [ctypes.c_void_p]
+    lib.kn_phmap_vals.restype = ctypes.POINTER(ctypes.c_uint32)
+    lib.kn_phmap_vals.argtypes = [ctypes.c_void_p]
+    lib.kn_phmap_free.argtypes = [ctypes.c_void_p]
+    lib.kn_phmap_place.restype = ctypes.c_int
+    lib.kn_phmap_place.argtypes = [ctypes.POINTER(ctypes.c_uint64),
+                                   ctypes.c_uint64, ctypes.c_uint64,
+                                   ctypes.POINTER(ctypes.c_uint32)]
     _lib = lib
     return _lib
 
@@ -107,3 +123,41 @@ def parse_fastx(path: str) -> Optional[List[np.ndarray]]:
         return [codes[bounds[i]:bounds[i + 1]] for i in range(n_seqs)]
     finally:
         lib.kn_free(h)
+
+
+def phmap_place(hashes: np.ndarray, cap: int) -> Optional[np.ndarray]:
+    """SwissTable slot positions for one submap (mixed hashes, cap=2^n-1)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    hs = np.ascontiguousarray(hashes, np.uint64)
+    pos = np.empty(len(hs), np.uint32)
+    rc = lib.kn_phmap_place(
+        hs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), len(hs), cap,
+        pos.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+    if rc != 0:
+        raise ValueError("phmap placement over-filled a submap")
+    return pos
+
+
+def parse_phmap(data: bytes, wide: bool) -> Optional[Tuple[np.ndarray,
+                                                           np.ndarray]]:
+    """Parse a phmap dump into (keys u64[n], vals u32[n,9])."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = (ctypes.c_uint8 * len(data)).from_buffer_copy(data)
+    h = lib.kn_parse_phmap(buf, len(data), 1 if wide else 0)
+    if not h:
+        raise ValueError("corrupt phmap archive")
+    try:
+        n = lib.kn_phmap_count(h)
+        if n == 0:
+            return (np.zeros(0, np.uint64), np.zeros((0, 9), np.uint32))
+        keys = np.ctypeslib.as_array(lib.kn_phmap_keys(h),
+                                     shape=(n,)).copy()
+        vals = np.ctypeslib.as_array(lib.kn_phmap_vals(h),
+                                     shape=(n, 9)).copy()
+        return keys, vals
+    finally:
+        lib.kn_phmap_free(h)

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (ops/csrc/*.cu).
 
-nvcc compiles every .cu file of csrc/ for sm_90a into one shared library
+nvcc compiles every .cu file of csrc/ for sm_90a, one process per file,
+all started together, and links the objects into one shared library
 with a plain C interface, in the package's gitignored `_build/`
 directory, at first use.  A hash of the sources and flags decides
 whether the library is stale.  A failed build raises: there is no
@@ -17,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -25,7 +27,8 @@ _LIB = os.path.join(BUILD_DIR, "libkreeq_kernels.so")
 _HASH = _LIB + ".srchash"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-shared"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
@@ -33,6 +36,8 @@ _SIGNATURES = {
     "kq_merge_sorted": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "kq_probe_qv": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P],
+    "kq_probe_select": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+                        _P],
 }
 
 _lib = None
@@ -44,7 +49,7 @@ def _sources():
 
 
 def _src_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in _sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
@@ -73,17 +78,36 @@ def build() -> str:
     except OSError:
         pass
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed to build the CUDA kernels:\n"
-                           + " ".join(cmd) + "\n" + res.stdout + res.stderr)
+    nvcc = _nvcc()
+    report = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        jobs = []
+        for src in (s for s in _sources() if s.endswith(".cu")):
+            obj = os.path.join(objdir, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        # wait for every compile before raising, so none outlives us
+        results = [(cmd, obj, proc.communicate()[0], proc.returncode)
+                   for cmd, obj, proc in jobs]
+        for cmd, _obj, out, rc in results:
+            if rc != 0:
+                raise RuntimeError("nvcc failed to build the CUDA kernels:"
+                                   "\n" + " ".join(cmd) + "\n" + out)
+            report.append(out)
+        tmp = f"{_LIB}.{os.getpid()}.tmp"
+        cmd = [nvcc, *LINK_FLAGS, "-o", tmp, *(obj for _c, obj, _o, _r
+                                                in results)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc failed to link the CUDA kernels:\n"
+                               + " ".join(cmd) + "\n" + res.stdout
+                               + res.stderr)
     os.replace(tmp, _LIB)
     with open(_HASH, "w") as fh:
         fh.write(digest)
-    return res.stdout + res.stderr
+    return "".join(report)
 
 
 def library() -> ctypes.CDLL:

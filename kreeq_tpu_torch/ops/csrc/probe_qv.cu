@@ -30,12 +30,6 @@ namespace {
 
 constexpr int PROBE_THREADS = 256;
 
-__device__ __forceinline__ int64_t selected(const int64_t* fw,
-                                            const int64_t* bw, int64_t row,
-                                            int sel) {
-  return sel <= 4 ? fw[4 * row + sel - 1] : bw[4 * row + sel - 5];
-}
-
 __global__ void probe_qv(const int64_t* __restrict__ tkeys,
                          const int64_t* __restrict__ tcov,
                          const int64_t* __restrict__ tfw,

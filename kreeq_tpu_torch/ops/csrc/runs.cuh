@@ -1,7 +1,8 @@
 // Shared device code of the run kernels (count_runs.cu, merge_sorted.cu)
-// and the probe (probe_qv.cu): the key and counter conventions, binary
-// search, and the three-pass "run head" scan that gives each run of
-// equal keys its output slot.
+// and the probes (probe_qv.cu, probe_select.cu): the key and counter
+// conventions, binary search, the probes' counter selection, and the
+// three-pass "run head" scan that gives each run of equal keys its
+// output slot.
 //
 // Conventions (kreeq_tpu_torch/constants.py): a key is int64 holding
 // u64 ^ 2^63, so signed order is the packed k-mer order and the
@@ -35,6 +36,14 @@ __device__ __forceinline__ int64_t lower_bound(const int64_t* a, int64_t n,
     if (a[mid] < key) lo = mid + 1; else hi = mid;
   }
   return lo;
+}
+
+// The edge counter a probe's ctx selector names: 1-4 = fw0-3, 5-8 =
+// bw0-3 of table row `row` (fw, bw are [t, 4] row-major).
+__device__ __forceinline__ int64_t selected(const int64_t* fw,
+                                            const int64_t* bw, int64_t row,
+                                            int sel) {
+  return sel <= 4 ? fw[4 * row + sel - 1] : bw[4 * row + sel - 5];
 }
 
 __device__ __forceinline__ int64_t upper_bound(const int64_t* a, int64_t n,

@@ -12,6 +12,7 @@ the kernels.
   count_runs_cuda  <- csrc/count_runs.cu    (TPU: pallas_kernels._kernel)
   merge_sorted_cuda <- csrc/merge_sorted.cu (TPU: _merge_kernel2)
   probe_qv_cuda    <- csrc/probe_qv.cu      (TPU: _probe_kernel_ind)
+  probe_select_cuda <- csrc/probe_select.cu (TPU: _probe_kernel_sel2)
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 from . import kmers as K
 from . import validate as V
 
-LAUNCHES = {"count": 0, "merge": 0, "probe_qv": 0}
+LAUNCHES = {"count": 0, "merge": 0, "probe_qv": 0, "probe_select": 0}
 
 
 def reset_launches() -> None:
@@ -152,9 +153,38 @@ def probe_qv_cuda(tkeys, tcov, tfw, tbw, qkeys, qctx, lead: int, hi: int,
     _check("probe_qv qctx", qctx, torch.uint8, (q,))
     lead = max(int(lead), 0)
     count = max(min(int(hi), q) - lead, 0)
+    if count == 0:  # nothing to probe: no launch, so no count
+        return torch.zeros(2, dtype=torch.int64, device=qkeys.device)
     out = torch.empty(2, dtype=torch.int64, device=qkeys.device)
     _launch("probe_qv", lib.kq_probe_qv, *_ptrs(*tab), t,
             *_ptrs(qkeys, qctx), lead, count, max(int(cutoff), 1),
             out.data_ptr())
     LAUNCHES["probe_qv"] += 1
     return out
+
+
+def probe_select_cuda(tkeys, tcov, tfw, tbw, qkeys, qctx):
+    """(found, cov, right, left) per query, in query order (see
+    validate.probe_select for the contract).  CUDA tensors: the
+    probe_select kernel."""
+    tab = (tkeys, tcov, tfw, tbw)
+    if not _on_cuda("probe_select", *tab, qkeys, qctx):
+        return V.probe_select(*tab, qkeys, qctx)
+    from ._build import library
+
+    lib = library()
+    t = _check_table("probe_select table", *tab)
+    q = qkeys.shape[0]
+    _check("probe_select qkeys", qkeys, torch.int64, (q,))
+    _check("probe_select qctx", qctx, torch.uint8, (q,))
+    dev = qkeys.device
+    found = torch.empty(q, dtype=torch.bool, device=dev)
+    cov = torch.empty(q, dtype=torch.int64, device=dev)
+    right = torch.empty(q, dtype=torch.int64, device=dev)
+    left = torch.empty(q, dtype=torch.int64, device=dev)
+    if q == 0:  # nothing to probe: no launch, so no count
+        return found, cov, right, left
+    _launch("probe_select", lib.kq_probe_select, *_ptrs(*tab), t,
+            *_ptrs(qkeys, qctx), q, *_ptrs(found, cov, right, left))
+    LAUNCHES["probe_select"] += 1
+    return found, cov, right, left

@@ -1,11 +1,14 @@
-"""PyTorch port, whole slice: `validate -r reads -f asm` through the
-port's CLI on the CPU must print byte for byte what the JAX package's
-CLI prints, on generated inputs with planted SNV/INS/DEL, IUPAC bases,
-an N run, a segment shorter than k, several read chunks and validate
-window seams."""
+"""PyTorch port, whole slices through the CLIs on the CPU: `validate -r
+reads [-f asm]`, every ported output (-o x.bed/csv/csvtable/kwig/bkwig/
+hist/kreeq), DB reuse (-d), `union` with its fatal paths and the bkwig
+decompressor must print and write byte for byte what the JAX package's
+CLIs do, on generated inputs with planted SNV/INS/DEL, IUPAC bases, an N
+run, a segment shorter than k, several read chunks and validate window
+seams."""
 
 import contextlib
 import io
+import os
 
 import numpy as np
 import pytest
@@ -86,3 +89,141 @@ def test_reads_only_prints_db_summary(tmp_path, monkeypatch):
     rp, _ap = _write_inputs(tmp_path, 0)
     argv = ["kreeq", "validate", "-r", rp]
     assert _stdout(run, argv) == _stdout(jax_run, argv)
+
+
+def _same_output(got, want):
+    """A file or a `.kreeq` directory, byte for byte; or both absent."""
+    assert os.path.exists(got) == os.path.exists(want)
+    if os.path.isdir(want):
+        names = sorted(os.listdir(want))
+        assert sorted(os.listdir(got)) == names and names
+        for name in names:
+            _same_output(os.path.join(got, name), os.path.join(want, name))
+    elif os.path.exists(want):
+        with open(got, "rb") as g, open(want, "rb") as w:
+            assert g.read() == w.read(), got
+
+
+@pytest.fixture
+def both(tmp_path, monkeypatch):
+    """(jax_run, port_run) on the CPU at the small chunk and window."""
+    from kreeq_tpu.cli.main import run as jax_run
+    from kreeq_tpu.core.dbg import DBG as JaxDBG
+    from kreeq_tpu_torch.cli.main import run
+    from kreeq_tpu_torch.core.dbg import DBG
+
+    monkeypatch.setenv("KREEQ_TPU_PLATFORM", "cpu")
+    monkeypatch.setenv("KREEQ_TPU_CHUNK", str(CHUNK))
+    monkeypatch.setattr(JaxDBG, "VALIDATE_WINDOW", WINDOW)
+    monkeypatch.setattr(DBG, "VALIDATE_WINDOW", WINDOW)
+    return jax_run, run
+
+
+@pytest.mark.parametrize("ext", ["bed", "csv", "csvtable", "kwig", "bkwig",
+                                 "hist", "kreeq"])
+def test_validate_outputs_match_jax(tmp_path, both, ext):
+    """`-o x.csv` writes no file in either package: the reference's
+    output table has no csv entry."""
+    jax_run, run = both
+    rp, ap = _write_inputs(tmp_path, 3)
+    outs = []
+    for name, fn in (("jax", jax_run), ("port", run)):
+        out = str(tmp_path / f"{name}.{ext}")
+        argv = ["kreeq", "validate", "-r", rp, "-f", ap, "-o", out]
+        outs.append((out, _stdout(fn, argv)))
+    (want, want_stdout), (got, got_stdout) = outs
+    assert got_stdout == want_stdout and "Kreeq" in want_stdout
+    assert os.path.exists(want) == (ext != "csv")
+    _same_output(got, want)
+
+
+def test_db_reuse_matches_jax(tmp_path, both):
+    """A DB written with -o x.kreeq is read back with -d: summary, QV
+    table and per-base tracks as in the JAX package."""
+    jax_run, run = both
+    rp, ap = _write_inputs(tmp_path, 4)
+    db = str(tmp_path / "reads.kreeq")
+    _stdout(jax_run, ["kreeq", "validate", "-r", rp, "-k", "31", "-o", db])
+    for extra in ([], ["-f", ap], ["-f", ap, "-c", "2"]):
+        argv = ["kreeq", "validate", "-d", db, *extra]
+        assert _stdout(run, argv) == _stdout(jax_run, argv)
+    outs = [str(tmp_path / f"{name}.bkwig") for name in ("jax", "port")]
+    for out, fn in zip(outs, (jax_run, run)):
+        _stdout(fn, ["kreeq", "validate", "-d", db, "-f", ap, "-o", out])
+    with open(outs[0], "rb") as fh:
+        assert fh.read(1) == bytes([31])
+    _same_output(outs[1], outs[0])
+
+
+def test_union_matches_jax(tmp_path, both):
+    jax_run, run = both
+    dbs = []
+    for seed in (0, 5):
+        sub = tmp_path / f"s{seed}"
+        sub.mkdir()
+        rp, _ap = _write_inputs(sub, seed)
+        dbs.append(str(sub / "r.kreeq"))
+        _stdout(jax_run, ["kreeq", "validate", "-r", rp, "-o", dbs[-1]])
+    argv = ["kreeq", "union", "-d", *dbs]
+    assert _stdout(run, argv) == _stdout(jax_run, argv)
+    outs = [str(tmp_path / f"{name}.kreeq") for name in ("jax", "port")]
+    stdouts = [_stdout(fn, argv + ["-o", out])
+               for out, fn in zip(outs, (jax_run, run))]
+    assert stdouts[0] == stdouts[1] and "Distinct kmers" in stdouts[0]
+    _same_output(outs[1], outs[0])
+
+
+@pytest.mark.parametrize("ks,msg", [
+    ((21, 22), "Cannot merge databases with different kmer length.\n"),
+    ((33, 33), "Invalid kmer length.\n"),
+])
+def test_union_fatal_paths_match_jax(tmp_path, both, capsys, ks, msg):
+    """Reference: src/input.cpp:137-145."""
+    dbs = []
+    for name, k in zip("ab", ks):
+        d = tmp_path / f"{name}.kreeq"
+        d.mkdir()
+        (d / ".index").write_text(f"{k}\n128\n")
+        dbs.append(str(d))
+    for fn in both:
+        with pytest.raises(SystemExit) as exc:
+            fn(["kreeq", "union", "-d", *dbs])
+        assert exc.value.code == 1
+        assert capsys.readouterr().err == msg
+
+
+@pytest.fixture(scope="module")
+def bkwig(tmp_path_factory):
+    """A .bkwig written by the JAX CLI, and a coordinate file."""
+    from kreeq_tpu.cli.main import run as jax_run
+    from kreeq_tpu.core.dbg import DBG as JaxDBG
+
+    tmp = tmp_path_factory.mktemp("bkwig")
+    rp, ap = _write_inputs(tmp, 6)
+    out = str(tmp / "asm.bkwig")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("KREEQ_TPU_CHUNK", str(CHUNK))
+        mp.setattr(JaxDBG, "VALIDATE_WINDOW", WINDOW)
+        _stdout(jax_run, ["kreeq", "validate", "-r", rp, "-f", ap, "-o",
+                          out])
+    coords = tmp / "coords.bed"
+    coords.write_text("chr1\t40\t90\nchr2\t7\t30\nchr1\t1300\t1350\n")
+    return out, str(coords)
+
+
+@pytest.mark.parametrize("args", [
+    ["inflate"],
+    ["inflate", "--expand"],
+    ["lookup", "chr1:100-180", "chr2:5-60", "-s", "3"],
+    ["lookup", "-c", "COORDS", "--expand", "-s", "2"],
+])
+def test_decompressor_matches_jax(bkwig, args):
+    from kreeq_tpu.cli.decompressor import run as jax_run
+    from kreeq_tpu_torch.cli.decompressor import run
+
+    path, coords = bkwig
+    argv = ["kreeq-decompressor", args[0], "-i", path,
+            *(coords if a == "COORDS" else a for a in args[1:])]
+    want = _stdout(jax_run, argv)
+    assert want.count("\n") > 40
+    assert _stdout(run, argv) == want

@@ -159,3 +159,56 @@ def test_probe_qv_matches_plain(cuda, k, cutoff):
     empty = tuple(t[:0] for t in tab)
     _same((probe_qv_cuda(*empty, qkeys, qctx, 0, q, cutoff),),
           (V.qv_sums(*empty, qkeys, qctx, 0, q, cutoff),))
+
+
+@pytest.mark.parametrize("k", [21, 32])
+def test_probe_select_matches_plain(cuda, k):
+    from kreeq_tpu_torch.constants import SENTINEL
+    from kreeq_tpu_torch.ops import kmers as K
+    from kreeq_tpu_torch.ops import validate as V
+    from kreeq_tpu_torch.ops.kernels import probe_select_cuda
+
+    rng = np.random.default_rng(k + 1)
+    genome = rng.integers(0, 4, 200_000).astype(np.uint8)
+    reads = np.concatenate([genome] * 3 + [genome[:50_000]])
+    keys, _isfw, edges, valid = K.kmer_positions(
+        torch.from_numpy(reads).to(cuda), k)
+    tab = K.count_sorted(keys, edges, valid)[:4]  # SENTINEL-tailed
+    asm = genome.copy()
+    asm[rng.integers(0, asm.shape[0], 400)] ^= 1
+    asm[rng.integers(0, asm.shape[0], 50)] = 4
+    qkeys, _isfw, _valid, qctx = V._extract_ctx(
+        torch.from_numpy(asm).to(cuda), k)
+    assert bool((qkeys == SENTINEL).any())  # SENTINEL queries present
+    # some 0 selectors too (no neighbour on that side)
+    qctx[:100] &= 0xF0
+    qctx[100:200] &= 0x0F
+    got = probe_select_cuda(*tab, qkeys, qctx)
+    want = V.probe_select(*tab, qkeys, qctx)
+    assert bool(want[0].any()) and bool(want[2].any())
+    _same(got, want)
+    empty = tuple(t[:0] for t in tab)
+    _same(probe_select_cuda(*empty, qkeys, qctx),
+          V.probe_select(*empty, qkeys, qctx))
+    _same(probe_select_cuda(*tab, qkeys[:0], qctx[:0]),
+          V.probe_select(*tab, qkeys[:0], qctx[:0]))
+
+
+def test_empty_probes_count_no_launch(cuda):
+    """A probe with no position to search launches no kernel, so its
+    launch count stays where it was."""
+    from kreeq_tpu_torch.ops import kernels
+
+    tab = (torch.zeros(3, dtype=torch.int64, device=cuda),
+           torch.ones(3, dtype=torch.int64, device=cuda),
+           torch.zeros((3, 4), dtype=torch.int64, device=cuda),
+           torch.zeros((3, 4), dtype=torch.int64, device=cuda))
+    qkeys = torch.zeros(0, dtype=torch.int64, device=cuda)
+    qctx = torch.zeros(0, dtype=torch.uint8, device=cuda)
+    kernels.reset_launches()
+    found, cov, right, left = kernels.probe_select_cuda(*tab, qkeys, qctx)
+    assert [t.shape[0] for t in (found, cov, right, left)] == [0] * 4
+    sums = kernels.probe_qv_cuda(*tab, qkeys, qctx, 0, 5, 0)
+    assert sums.tolist() == [0, 0]
+    assert kernels.LAUNCHES["probe_select"] == 0
+    assert kernels.LAUNCHES["probe_qv"] == 0

@@ -54,8 +54,8 @@ def test_no_cuda_and_no_platform_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["-d", __file__], "-d"),
-    (["-o", "x.hist"], "-o"),
+    (["-o", "x.vcf"], "-o x.vcf"),
+    (["-o", "x.gfa"], "-o x.gfa"),
     (["--trace-dir", "t"], "--trace-dir"),
     (["--detect-anomalies", "a.bed"], "--detect-anomalies"),
 ])
