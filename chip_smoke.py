@@ -10,8 +10,9 @@ non-zero and never prints the final line):
   3. kernels against their plain PyTorch versions on the card, at the
      main path's shapes (one 8M-base read chunk; the two largest parts
      of a build's tree merge; one full 4,194,304-position validate
-     window for each probe), exact equality, median times with CUDA
-     events;
+     window for each probe; one full variants window of per-position
+     sentinel keys for the generic probe), exact equality, median times
+     with CUDA events;
   4. end to end: `kreeq validate -r reads.fq -f asm.fa -k 21` through
      the port's CLI on the card, on a generated yeast-scale assembly
      (planted SNV/INS/DEL, an N run, IUPAC bases, short contigs) and
@@ -19,8 +20,11 @@ non-zero and never prints the final line):
      must have launched, and Total must equal the assembly's k-mer
      count;
   5. the whole slice at 0.5 Mbp on the card and on the CPU (plain
-     versions): stdout and every output file (-o x.kreeq, x.bed, x.kwig,
-     x.bkwig, x.hist, `union`) must be byte-equal;
+     versions), with 4,096-position variants windows: stdout and every
+     output file (-o x.kreeq, x.bed, x.kwig, x.bkwig, x.hist, `union`,
+     --detect-anomalies; -o x.vcf, x.gfa, x.gfa2, x.gfa.gz on the first
+     100 kbp, since the host search of every branch point runs twice per
+     output) must be byte-equal, .gz files after decompression;
   6. DB reuse with per-base tracks, end to end on phase 4's inputs:
      `validate -r reads.fq -k 21 -o reads.kreeq`, then `validate -d
      reads.kreeq -f asm.fa -o asm.bkwig`, then the decompressor's
@@ -30,7 +34,15 @@ non-zero and never prints the final line):
   7. only with --profile DIR: a cProfile of `write_kreeq` on phase 6's
      DB, loaded back onto the card (the rewritten DB must be
      byte-equal), and a torch.profiler trace of a second, warm `-d -f -o
-     asm.bkwig` run; summaries and the trace go to DIR.
+     asm.bkwig` run; summaries and the trace go to DIR;
+  8. the variants path against phase 6's DB: `validate -d reads.kreeq
+     -f asm.fa --detect-anomalies asm.anom.bed` on the whole assembly
+     (QV rows must equal phase 4's), then `validate -d reads.kreeq -f
+     chr2_1mbp.fa -o asm.vcf` on the first 1,000,000 bases of chr2 (the
+     host search of every branch point bounds its size; the table and
+     the scan window are full size): the VCF must have rows, each REF
+     must equal the assembly at its POS, and the generic probe must have
+     launched on both paths.
 The second-to-last line is a JSON object with each kernel's launches,
 error and times; the last is {"ok": true, "device": {...}}.  Needs a
 CUDA device; imports no JAX.
@@ -40,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gzip
 import io
 import json
 import os
@@ -64,9 +77,12 @@ CHUNK = 1 << 23  # bases of one read chunk (KREEQ_TPU_CHUNK default)
 # long enough for a full validate window and a window seam
 CHROM_SHARES = (0.42, 0.25, 0.2, 0.13)
 LUT = np.frombuffer(b"ACGTN", np.uint8)
+CUT_CPU_VS_CUDA = 100_000  # bases of phase 5's variants outputs
+CUT_VCF = 1_000_000  # bases of chr2 in phase 8's VCF run
 
 # (name, LAUNCHES key, source, TPU kernel, the main path whose launches
-# the JSON line reports: phase 4's `-r -f` run or phase 6's track run)
+# the JSON line reports: phase 4's `-r -f` run, phase 6's track run or
+# phase 8's VCF run)
 KERNELS = (
     ("count_runs", "count", "kreeq_tpu_torch/ops/csrc/count_runs.cu",
      "kreeq_tpu/ops/pallas_kernels.py:59", "validate"),
@@ -77,6 +93,9 @@ KERNELS = (
     ("probe_select", "probe_select",
      "kreeq_tpu_torch/ops/csrc/probe_select.cu",
      "kreeq_tpu/ops/pallas_kernels.py:696", "tracks"),
+    ("probe_sorted", "probe_sorted",
+     "kreeq_tpu_torch/ops/csrc/probe_sorted.cu",
+     "kreeq_tpu/ops/pallas_kernels.py:342", "variants"),
 )
 
 
@@ -217,8 +236,34 @@ def check_launches(launches, keys, path: str) -> None:
                                  f"{path} path")
 
 
+def drive(argv, keys, name: str, device):
+    """One CLI run as a main path: the launch counts and the variants
+    search counts are set to 0 just before it and read just after; every
+    kernel in `keys` must have launched.  Returns (stdout, launches,
+    phases, wall seconds, peak device GiB)."""
+    import torch
+
+    from kreeq_tpu_torch.core import variants
+    from kreeq_tpu_torch.ops import kernels
+    from kreeq_tpu_torch.utils import log as klog
+
+    kernels.reset_launches()
+    klog._phases.clear()
+    variants.SEARCH_STATS.update(branch_points=0, search_s=0.0)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out = run_cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check_launches(launches, keys, name)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    return out, launches, dict(klog._phases), wall, peak
+
+
 def same_output(a: str, b: str) -> None:
-    """A file or a `.kreeq` directory, byte for byte."""
+    """A file or a `.kreeq` directory, byte for byte; a .gz file after
+    decompression (its header holds a time)."""
     if os.path.isdir(a):
         names = sorted(os.listdir(a))
         if not names or names != sorted(os.listdir(b)):
@@ -226,9 +271,21 @@ def same_output(a: str, b: str) -> None:
         for name in names:
             same_output(os.path.join(a, name), os.path.join(b, name))
         return
-    with open(a, "rb") as fa, open(b, "rb") as fb:
+    opener = gzip.open if a.endswith(".gz") else open
+    with opener(a, "rb") as fa, opener(b, "rb") as fb:
         if fa.read() != fb.read():
             raise AssertionError(f"{a} and {b} differ")
+
+
+def head_fasta(src: str, dst: str, name: str, nbases: int) -> str:
+    """Write the first `nbases` bases of record `name` of `src` (one line
+    per record, as make_inputs writes) to `dst`; returns them."""
+    with open(src) as fh:
+        lines = fh.read().split("\n")
+    seq = lines[lines.index(f">{name}") + 1][:nbases]
+    with open(dst, "w") as fh:
+        fh.write(f">{name}\n{seq}\n")
+    return seq
 
 
 # ---------------------------------------------------------------------------
@@ -278,6 +335,7 @@ def phase_kernels(fq: str, fa: str, device):
     from kreeq_tpu_torch.config import UserInput
     from kreeq_tpu_torch.core.dbg import DBG
     from kreeq_tpu_torch.core.table import KmerTable, TreeMerger
+    from kreeq_tpu_torch.core.variants import _extract_sentinel
     from kreeq_tpu_torch.io.fastx import iter_reads, load_genome
     from kreeq_tpu_torch.io.sequence import Genome
     from kreeq_tpu_torch.ops import kernels
@@ -365,6 +423,18 @@ def phase_kernels(fq: str, fa: str, device):
                             V.probe_select(*sargs)),
         ms=cuda_ms(lambda: kernels.probe_select_cuda(*sargs)),
         plain_ms=cuda_ms(lambda: V.probe_select(*sargs)))
+    # the variants scan probes one window of positions, invalid windows
+    # carrying their per-position sentinels
+    vbuf = torch.from_numpy(seg.codes[:WINDOW + K - 1]).to(device)
+    vkeys, _visfw, _vvalid = _extract_sentinel(vbuf, K)
+    vargs = (*tab, vkeys)
+    res["probe_sorted"] = dict(
+        shape=f"q={vkeys.shape[0]} t={len(table)}",
+        max_abs_err=compare("probe_sorted",
+                            kernels.probe_sorted_cuda(*vargs),
+                            Km.probe_sorted(*vargs)),
+        ms=cuda_ms(lambda: kernels.probe_sorted_cuda(*vargs)),
+        plain_ms=cuda_ms(lambda: Km.probe_sorted(*vargs)))
     for name, *_rest in KERNELS:
         r = res[name]
         log(f"    {name:13s} {r['shape']:28s} kernel {r['ms']:9.3f} ms  "
@@ -373,21 +443,10 @@ def phase_kernels(fq: str, fa: str, device):
 
 
 def phase_end_to_end(fq, fa, read_bases, kcount, ingest_s, device):
-    import torch
-
-    from kreeq_tpu_torch.ops import kernels
-    from kreeq_tpu_torch.utils import log as klog
-
     os.environ.pop("KREEQ_TPU_PLATFORM", None)
-    kernels.reset_launches()
-    klog._phases.clear()
-    torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.perf_counter()
-    out = run_cli(["kreeq", "validate", "-r", fq, "-f", fa, "-k", str(K)])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    phases = dict(klog._phases)
+    out, launches, phases, wall, peak = drive(
+        ["kreeq", "validate", "-r", fq, "-f", fa, "-k", str(K)],
+        ("count", "merge", "probe_qv"), "validate", device)
     for line in out.splitlines():
         log("    | " + line)
     build_s = phases["build k-mer DB"]
@@ -396,8 +455,7 @@ def phase_end_to_end(fq, fa, read_bases, kcount, ingest_s, device):
         f"read bases/s (ingest alone, timed in phase 3: {ingest_s:.2f} "
         f"s); load genome {phases['load genome']:.2f} s; "
         f"validate + report {phases['report']:.2f} s; peak device "
-        f"memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} "
-        f"GiB; launches {launches}")
+        f"memory {peak:.2f} GiB; launches {launches}")
     lines = out.splitlines()
     rows = [ln.split("\t") for ln in lines[-2:]]
     for row in rows:
@@ -410,7 +468,6 @@ def phase_end_to_end(fq, fa, read_bases, kcount, ingest_s, device):
             raise AssertionError(f"implausible QV row {row}")
     if not lines[0].startswith("DBG Summary statistics:"):
         raise AssertionError("no DB summary")
-    check_launches(launches, ("count", "merge", "probe_qv"), "validate")
     return launches, lines[-2:]
 
 
@@ -426,6 +483,8 @@ def phase_cuda_vs_cpu(seed: int):
         other = os.path.join(tmp, "other")
         os.mkdir(other)
         _fa2, fq2, _rb2, _kc2 = make_inputs(rng, 0.2, 10, other)
+        fa_cut = os.path.join(tmp, "chr1_cut.fa")
+        head_fasta(fa, fa_cut, "chr1", CUT_CPU_VS_CUDA)
 
         def commands(out):
             """argv of each command, with its output written under
@@ -439,10 +498,17 @@ def phase_cuda_vs_cpu(seed: int):
                        os.path.join(out, f"asm.{ext}")]
             yield ["kreeq", "union", "-d", a, b, "-o",
                    os.path.join(out, "ab.kreeq")]
+            yield ["kreeq", "validate", "-d", a, "-f", fa,
+                   "--detect-anomalies", os.path.join(out, "asm.anom.bed")]
+            for ext in ("vcf", "gfa", "gfa2", "gfa.gz"):
+                yield ["kreeq", "validate", "-d", a, "-f", fa_cut, "-o",
+                       os.path.join(out, f"asm.{ext}")]
 
         outs, stdouts, secs = {}, {}, {}
         old = DBG.VALIDATE_WINDOW
         DBG.VALIDATE_WINDOW = 100_003  # window seams at this size too
+        # and in the variants scan
+        os.environ["KREEQ_TPU_VARIANTS_WINDOW"] = "4096"
         try:
             for platform in ("cuda", "cpu"):
                 os.environ["KREEQ_TPU_PLATFORM"] = platform
@@ -454,6 +520,7 @@ def phase_cuda_vs_cpu(seed: int):
                 secs[platform] = time.perf_counter() - t0
         finally:
             os.environ.pop("KREEQ_TPU_PLATFORM", None)
+            os.environ.pop("KREEQ_TPU_VARIANTS_WINDOW", None)
             DBG.VALIDATE_WINDOW = old
         for argv, gpu, cpu in zip(commands(""), stdouts["cuda"],
                                   stdouts["cpu"]):
@@ -461,12 +528,18 @@ def phase_cuda_vs_cpu(seed: int):
                 raise AssertionError(f"{argv[1:]}: CUDA and CPU stdout "
                                      f"differ:\n{gpu}\n---\n{cpu}")
         names = sorted(os.listdir(outs["cuda"]))
-        if names != ["a.kreeq", "ab.kreeq", "asm.bed", "asm.bkwig",
-                     "asm.hist", "asm.kwig", "b.kreeq"]:
+        if names != ["a.kreeq", "ab.kreeq", "asm.anom.bed", "asm.bed",
+                     "asm.bkwig", "asm.gfa", "asm.gfa.gz", "asm.gfa2",
+                     "asm.hist", "asm.kwig", "asm.vcf", "b.kreeq"]:
             raise AssertionError(f"unexpected outputs {names}")
         same_output(outs["cuda"], outs["cpu"])
+        with open(os.path.join(outs["cpu"], "asm.vcf")) as fh:
+            vcf_rows = sum(1 for line in fh if not line.startswith("#"))
+        if vcf_rows == 0:
+            raise AssertionError("phase 5's VCF has no rows")
     log(f"[5 cuda vs cpu] 0.5 Mbp, 30x: stdout of {len(stdouts['cpu'])} "
-        f"commands and {', '.join(names)} byte-equal (cuda "
+        f"commands and {', '.join(names)} byte-equal (vcf/gfa on the "
+        f"first {CUT_CPU_VS_CUDA} bases, {vcf_rows} VCF rows; cuda "
         f"{secs['cuda']:.2f} s, cpu {secs['cpu']:.2f} s)")
 
 
@@ -475,38 +548,21 @@ def phase_db_tracks(fq, fa, tmp, qv_rows, device):
     DB, validate the assembly against it with a .bkwig track, inflate
     the track.  Each CLI run is a main path: launch counts are set to 0
     just before it and read just after."""
-    import torch
-
     from kreeq_tpu_torch.cli.decompressor import BkwigIndex, read_index
     from kreeq_tpu_torch.cli.decompressor import run as decompress
-    from kreeq_tpu_torch.ops import kernels
-    from kreeq_tpu_torch.utils import log as klog
 
     os.environ.pop("KREEQ_TPU_PLATFORM", None)
     db = os.path.join(tmp, "reads.kreeq")
     bkwig = os.path.join(tmp, "asm.bkwig")
 
-    def path(argv, keys, name):
-        kernels.reset_launches()
-        klog._phases.clear()
-        torch.cuda.reset_peak_memory_stats(device)
-        t0 = time.perf_counter()
-        out = run_cli(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        check_launches(launches, keys, name)
-        peak = torch.cuda.max_memory_allocated(device) / 2**30
-        return out, launches, dict(klog._phases), wall, peak
-
-    _out, l_db, ph_db, wall_db, peak_db = path(
+    _out, l_db, ph_db, wall_db, peak_db = drive(
         ["kreeq", "validate", "-r", fq, "-k", str(K), "-o", db],
-        ("count", "merge"), "DB build")
+        ("count", "merge"), "DB build", device)
     db_mib = sum(os.path.getsize(os.path.join(db, f))
                  for f in os.listdir(db)) / 2**20
-    out, l_tr, ph_tr, wall_tr, peak_tr = path(
+    out, l_tr, ph_tr, wall_tr, peak_tr = drive(
         ["kreeq", "validate", "-d", db, "-f", fa, "-o", bkwig],
-        ("probe_select",), "tracks")
+        ("probe_select",), "tracks", device)
     rows = out.splitlines()[-2:]
     if rows != qv_rows:
         raise AssertionError(f"QV rows of the DB-reuse track run {rows} "
@@ -566,6 +622,65 @@ def phase_db_tracks(fq, fa, tmp, qv_rows, device):
     log(f"    inflate {inflate_s:.2f} s ({nrows} rows); QV rows equal "
         "phase 4's")
     return l_tr
+
+
+def phase_variants(fa, tmp, qv_rows, device):
+    """The variants path at full table size, against phase 6's DB: the
+    anomaly scan of the whole assembly, then candidate errors as VCF rows
+    on the first CUT_VCF bases of chr2.  Each CLI run is a main path
+    (`drive`)."""
+    from kreeq_tpu_torch.core import variants
+
+    os.environ.pop("KREEQ_TPU_PLATFORM", None)
+    db = os.path.join(tmp, "reads.kreeq")
+
+    def path(argv, keys, name):
+        out, launches, phases, wall, peak = drive(argv, keys, name, device)
+        log(f"    `{' '.join(os.path.basename(a) for a in argv[2:])}`: "
+            f"wall {wall:.2f} s; "
+            + ", ".join(f"{n} {t:.2f} s" for n, t in phases.items())
+            + f"; peak device memory {peak:.2f} GiB; launches {launches}")
+        return out, launches
+
+    anom = os.path.join(tmp, "asm.anom.bed")
+    out, _l_anom = path(["kreeq", "validate", "-d", db, "-f", fa,
+                         "--detect-anomalies", anom],
+                        ("probe_qv", "probe_sorted"), "anomalies")
+    rows = out.splitlines()[-2:]
+    if rows != qv_rows:
+        raise AssertionError(f"QV rows of the anomalies run {rows} differ "
+                             f"from the -r run's {qv_rows}")
+    with open(anom) as fh:
+        ranges = [line.split("\t") for line in fh]
+    flagged = sum(int(b) - int(a) + 1 for _p, a, b in ranges)
+    if not ranges or any(int(a) > int(b) for _p, a, b in ranges):
+        raise AssertionError(f"implausible anomaly ranges ({len(ranges)})")
+
+    cut = os.path.join(tmp, "chr2_1mbp.fa")
+    seq = head_fasta(fa, cut, "chr2", CUT_VCF)
+    vcf = os.path.join(tmp, "asm.vcf")
+    _out, l_vcf = path(["kreeq", "validate", "-d", db, "-f", cut, "-o",
+                        vcf], ("probe_sorted",), "variants")
+    stats = dict(variants.SEARCH_STATS)
+    with open(vcf) as fh:
+        recs = [line.rstrip("\n").split("\t") for line in fh
+                if not line.startswith("#")]
+    if not recs:
+        raise AssertionError("the VCF has no rows")
+    for rec in recs:
+        pos, ref = int(rec[1]), rec[3]
+        if rec[0] != "chr2" or seq[pos - 1:pos - 1 + len(ref)] != ref:
+            raise AssertionError(f"VCF row {rec[:5]}: REF is not the "
+                                 "assembly at POS")
+    snvs = sum(1 for rec in recs if len(rec[3]) == len(rec[4]) == 1)
+    log(f"[8 variants] anomalies over {len(ranges)} ranges "
+        f"({flagged} positions), QV rows equal phase 4's; VCF of "
+        f"{CUT_VCF} bases of chr2: {stats['branch_points']} branch points "
+        f"({stats['branch_points'] / (CUT_VCF - K + 1):.2%} of positions), "
+        f"host search {stats['search_s']:.2f} s, {len(recs)} rows ({snvs} "
+        "SNV), "
+        "every REF equal to the assembly at its POS")
+    return l_vcf
 
 
 def _busy_s(events) -> float:
@@ -691,6 +806,7 @@ def main() -> int:
         launches["tracks"] = phase_db_tracks(fq, fa, tmp, qv_rows, device)
         if args.profile:
             phase_profile(fa, tmp, args.profile, device)
+        launches["variants"] = phase_variants(fa, tmp, qv_rows, device)
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")
 
     print(json.dumps({"kernels": [

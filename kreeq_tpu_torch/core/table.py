@@ -4,7 +4,9 @@ Counterpart of kreeq_tpu/core/table.py for the single-device build: a
 sorted structure of arrays {keys, cov, fw[4], bw[4]} of exactly n rows
 on one device, in the port's dtypes (constants.py).  The build counts
 read chunks and tree-merges the chunk tables on the device through the
-kernel wrappers of ops/kernels.py.
+kernel wrappers of ops/kernels.py.  The lookups of the variants path
+are `probe_device` / `probe` (batched, through probe_sorted_cuda) and
+`lookup` (scalar, on a host copy).
 
 Not yet ported: the host-merge spill for tables beyond device memory,
 table windows, build checkpoints and sharded builds.  A merge that
@@ -14,8 +16,8 @@ would not fit in device memory raises instead.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Dict, Iterable
+from dataclasses import dataclass, field
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -128,6 +130,9 @@ class KmerTable:
     cov: torch.Tensor  # int64 [n]
     fw: torch.Tensor  # int64 [n, 4]
     bw: torch.Tensor  # int64 [n, 4]
+    # host copy for lookup(): keys int64 [n], counters u32; made once
+    _host: Optional[Tuple[np.ndarray, ...]] = field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -194,6 +199,49 @@ class KmerTable:
         if acc is None:
             return cls.empty(k, device)
         return cls(k, *acc)
+
+    def probe_device(self, qkeys: torch.Tensor):
+        """Batched lookup of int64 keys on the table's device: (found,
+        cov, fw, bw) tensors in query order, through probe_sorted_cuda."""
+        from ..ops.kernels import probe_sorted_cuda
+
+        return probe_sorted_cuda(self.keys, self.cov, self.fw, self.bw,
+                                 qkeys)
+
+    def probe(self, qkeys: torch.Tensor) -> Tuple[np.ndarray, np.ndarray,
+                                                  np.ndarray, np.ndarray]:
+        """Batched lookup of int64 keys on the table's device: (found
+        bool, cov u32, fw u32 [., 4], bw u32 [., 4]) in numpy, the JAX
+        package's dtypes."""
+        q = qkeys.shape[0]
+        if len(self) == 0:
+            return (np.zeros(q, bool), np.zeros(q, np.uint32),
+                    np.zeros((q, 4), np.uint32),
+                    np.zeros((q, 4), np.uint32))
+        found, cov, fw, bw = self.probe_device(qkeys)
+        return (found.cpu().numpy(),
+                *(a.cpu().numpy().astype(np.uint32) for a in (cov, fw, bw)))
+
+    def lookup(self, key: int):
+        """Scalar host lookup of a u64 key (a Python int, the host
+        search's form): (fw u32[4], bw u32[4], cov) or None.  The first
+        call copies the table to the host once (keys stay int64 in the
+        port's order; about 44 bytes a row), so a search of many lookups
+        never waits on the device."""
+        if self._host is None:
+            from ..utils import log
+
+            with log.phase("table host copy"):
+                self._host = (self.keys.cpu().numpy(),
+                              *(a.cpu().numpy().astype(np.uint32)
+                                for a in (self.cov, self.fw, self.bw)))
+        keys, cov, fw, bw = self._host
+        # u64 ^ 2^63 as int64 is u64 - 2^63 for every u64
+        biased = np.int64(key - (1 << 63))
+        i = int(np.searchsorted(keys, biased))
+        if i < len(keys) and keys[i] == biased:
+            return fw[i], bw[i], int(cov[i])
+        return None
 
     def stats(self) -> TableStats:
         """DBG summary numbers (reference: src/graph-builder.cpp:240-295).

@@ -1,8 +1,8 @@
 // Shared device code of the run kernels (count_runs.cu, merge_sorted.cu)
-// and the probes (probe_qv.cu, probe_select.cu): the key and counter
-// conventions, binary search, the probes' counter selection, and the
-// three-pass "run head" scan that gives each run of equal keys its
-// output slot.
+// and the probes (probe_qv.cu, probe_select.cu, probe_sorted.cu): the key
+// and counter conventions, binary search, the probes' counter selection,
+// and the three-pass "run head" scan that gives each run of equal keys
+// its output slot.
 //
 // Conventions (kreeq_tpu_torch/constants.py): a key is int64 holding
 // u64 ^ 2^63, so signed order is the packed k-mer order and the

@@ -13,6 +13,7 @@ the kernels.
   merge_sorted_cuda <- csrc/merge_sorted.cu (TPU: _merge_kernel2)
   probe_qv_cuda    <- csrc/probe_qv.cu      (TPU: _probe_kernel_ind)
   probe_select_cuda <- csrc/probe_select.cu (TPU: _probe_kernel_sel2)
+  probe_sorted_cuda <- csrc/probe_sorted.cu (TPU: _probe_kernel)
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import torch
 from . import kmers as K
 from . import validate as V
 
-LAUNCHES = {"count": 0, "merge": 0, "probe_qv": 0, "probe_select": 0}
+LAUNCHES = {"count": 0, "merge": 0, "probe_qv": 0, "probe_select": 0,
+            "probe_sorted": 0}
 
 
 def reset_launches() -> None:
@@ -188,3 +190,29 @@ def probe_select_cuda(tkeys, tcov, tfw, tbw, qkeys, qctx):
             *_ptrs(qkeys, qctx), q, *_ptrs(found, cov, right, left))
     LAUNCHES["probe_select"] += 1
     return found, cov, right, left
+
+
+def probe_sorted_cuda(tkeys, tcov, tfw, tbw, qkeys):
+    """(found, cov, fw, bw) per query, in query order (see
+    kmers.probe_sorted for the contract).  CUDA tensors: the
+    probe_sorted kernel."""
+    tab = (tkeys, tcov, tfw, tbw)
+    if not _on_cuda("probe_sorted", *tab, qkeys):
+        return K.probe_sorted(*tab, qkeys)
+    from ._build import library
+
+    lib = library()
+    t = _check_table("probe_sorted table", *tab)
+    q = qkeys.shape[0]
+    _check("probe_sorted qkeys", qkeys, torch.int64, (q,))
+    dev = qkeys.device
+    found = torch.empty(q, dtype=torch.bool, device=dev)
+    cov = torch.empty(q, dtype=torch.int64, device=dev)
+    fw = torch.empty((q, 4), dtype=torch.int64, device=dev)
+    bw = torch.empty((q, 4), dtype=torch.int64, device=dev)
+    if q == 0:  # nothing to probe: no launch, so no count
+        return found, cov, fw, bw
+    _launch("probe_sorted", lib.kq_probe_sorted, *_ptrs(*tab), t,
+            qkeys.data_ptr(), q, *_ptrs(found, cov, fw, bw))
+    LAUNCHES["probe_sorted"] += 1
+    return found, cov, fw, bw

@@ -1,10 +1,10 @@
 """Canonical k-mer extraction, counting and merging in plain PyTorch.
 
-Counterpart of kreeq_tpu/ops/kmers.py.  `count_sorted` and
-`merge_sorted` here are the plain versions of the CUDA kernels in
-csrc/count_runs.cu and csrc/merge_sorted.cu; ops/kernels.py dispatches
-between the two by the device of the tensors.  `pack_reads` is host
-numpy, unchanged.
+Counterpart of kreeq_tpu/ops/kmers.py.  `count_sorted`, `merge_sorted`
+and `probe_sorted` here are the plain versions of the CUDA kernels in
+csrc/count_runs.cu, csrc/merge_sorted.cu and csrc/probe_sorted.cu;
+ops/kernels.py dispatches between each kernel and its plain version by
+the device of the tensors.  `pack_reads` is host numpy, unchanged.
 
 Keys follow the dtype rule in constants.py: int64 holding u64 ^ 2^63,
 SENTINEL = INT64_MAX.  The arithmetic below works on the raw u64 bit
@@ -156,6 +156,27 @@ def merge_sorted(keys_a, cov_a, fw_a, bw_a, keys_b, cov_b, fw_b, bw_b):
     ofw[:m] = v[:, 1:5]
     obw[:m] = v[:, 5:9]
     return okeys, ocov, ofw, obw, n
+
+
+def probe_sorted(tkeys, tcov, tfw, tbw, qkeys):
+    """Batched lookup in query order (plain version of the probe_sorted
+    kernel; contract of the JAX probe_sorted / probe_merge).
+
+    tkeys is sorted and unique (a SENTINEL tail is allowed).  Returns
+    (found bool[q], cov int64[q], fw int64[q, 4], bw int64[q, 4]): found
+    = the key is among the table's keys (a SENTINEL query is never
+    found; an empty table finds nothing), and the found row's counters,
+    0 where nothing was found."""
+    q = qkeys.shape[0]
+    t = tkeys.shape[0]
+    if t == 0:
+        zero = torch.zeros((q, 4), dtype=torch.int64, device=qkeys.device)
+        return zero[:, 0].bool(), zero[:, 0].clone(), zero, zero.clone()
+    row = torch.searchsorted(tkeys, qkeys).clamp_(max=t - 1)
+    found = (tkeys[row] == qkeys) & (qkeys != SENTINEL)
+    hit = found[:, None]
+    return (found, torch.where(found, tcov[row], 0),
+            torch.where(hit, tfw[row], 0), torch.where(hit, tbw[row], 0))
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,14 @@
 """PyTorch port, whole slices through the CLIs on the CPU: `validate -r
 reads [-f asm]`, every ported output (-o x.bed/csv/csvtable/kwig/bkwig/
-hist/kreeq), DB reuse (-d), `union` with its fatal paths and the bkwig
-decompressor must print and write byte for byte what the JAX package's
-CLIs do, on generated inputs with planted SNV/INS/DEL, IUPAC bases, an N
-run, a segment shorter than k, several read chunks and validate window
+hist/kreeq/vcf/gfa/gfa2/gfa.gz, `-o vcf` to stdout, --detect-anomalies),
+DB reuse (-d), `union` with its fatal paths and the bkwig decompressor
+must print and write byte for byte what the JAX package's CLIs do, on
+generated inputs with planted SNV/INS/DEL, IUPAC bases, an N run, a
+segment shorter than k, several read chunks and validate window
 seams."""
 
 import contextlib
+import gzip
 import io
 import os
 
@@ -171,6 +173,112 @@ def test_union_matches_jax(tmp_path, both):
                for out, fn in zip(outs, (jax_run, run))]
     assert stdouts[0] == stdouts[1] and "Distinct kmers" in stdouts[0]
     _same_output(outs[1], outs[0])
+
+
+def _read_text(path):
+    """A text output; a .gz one decompressed (its header holds a time)."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as fh:
+        return fh.read()
+
+
+def _vcf_rows(text):
+    return [line.split("\t") for line in text.splitlines()
+            if line and not line.startswith("#")]
+
+
+@pytest.mark.parametrize("k", ["21", "31", "32"])
+@pytest.mark.parametrize("ext,opts", [
+    ("vcf", []),
+    ("vcf", ["--search-depth", "50", "--max-span", "32"]),
+    ("gfa", []),
+    ("gfa2", []),
+    ("gfa.gz", []),
+])
+def test_variants_outputs_match_jax(tmp_path, both, k, ext, opts):
+    """Candidate errors as VCF rows or as a bubble graph: no QV table on
+    stdout, the same file."""
+    jax_run, run = both
+    rp, ap = _write_inputs(tmp_path, 9)
+    outs = []
+    for name, fn in (("jax", jax_run), ("port", run)):
+        out = str(tmp_path / f"{name}.{ext}")
+        argv = ["kreeq", "validate", "-r", rp, "-f", ap, "-k", k, "-o", out,
+                *opts]
+        outs.append((_stdout(fn, argv), _read_text(out)))
+    (want_stdout, want), (got_stdout, got) = outs
+    assert got_stdout == want_stdout and "Kreeq" not in want_stdout
+    assert got == want
+    if ext == "vcf":
+        assert len(_vcf_rows(want)) >= 3  # the planted differences
+    else:
+        assert want.count("\nS\t") > 10  # segments split into bubbles
+
+
+@pytest.mark.parametrize("k", ["21", "31", "32"])
+def test_vcf_to_stdout_matches_jax(tmp_path, both, k):
+    """`-o vcf` (no dot) streams the VCF to stdout, with no DB summary."""
+    jax_run, run = both
+    rp, ap = _write_inputs(tmp_path, 10)
+    argv = ["kreeq", "validate", "-r", rp, "-f", ap, "-k", k, "-o", "vcf"]
+    want = _stdout(jax_run, argv)
+    assert want.startswith("##fileformat=VCF") and len(_vcf_rows(want)) >= 3
+    assert _stdout(run, argv) == want
+
+
+@pytest.mark.parametrize("k", ["21", "31", "32"])
+def test_detect_anomalies_matches_jax(tmp_path, both, k):
+    jax_run, run = both
+    rp, ap = _write_inputs(tmp_path, 11)
+    outs = []
+    for name, fn in (("jax", jax_run), ("port", run)):
+        out = str(tmp_path / f"{name}.anom.bed")
+        argv = ["kreeq", "validate", "-r", rp, "-f", ap, "-k", k,
+                "--detect-anomalies", out]
+        outs.append((_stdout(fn, argv), _read_text(out)))
+    (want_stdout, want), (got_stdout, got) = outs
+    assert got_stdout == want_stdout and "Kreeq" in want_stdout
+    assert got == want and want.count("\n") >= 4
+
+
+@pytest.mark.parametrize("k", ["21", "31", "32"])
+def test_db_reuse_vcf_matches_jax(tmp_path, both, k):
+    """A DB written with -o x.kreeq, read back with -d for -o x.vcf."""
+    jax_run, run = both
+    rp, ap = _write_inputs(tmp_path, 12)
+    db = str(tmp_path / "reads.kreeq")
+    _stdout(jax_run, ["kreeq", "validate", "-r", rp, "-k", k, "-o", db])
+    outs = []
+    for name, fn in (("jax", jax_run), ("port", run)):
+        out = str(tmp_path / f"{name}.vcf")
+        outs.append((_stdout(fn, ["kreeq", "validate", "-d", db, "-f", ap,
+                                  "-o", out]), _read_text(out)))
+    assert outs[1] == outs[0] and len(_vcf_rows(outs[0][1])) >= 3
+
+
+def test_iupac_variants_and_anomalies_match_jax(tmp_path, both):
+    """The IUPAC case of tests/test_misc_features.py: k-mers holding the
+    R are anomalous and never seed a search; the search from the last
+    valid k-mer corrects the R."""
+    jax_run, run = both
+    left = "ACGGTTCAGCATGCGTTAGCATCGGATCCA"   # 30 bases
+    right = "GTTCAACGGTCAGGCATTCCGAATGCCTT"   # 29 bases
+    rp = tmp_path / "reads.fastq"
+    rp.write_text("".join(f"@r{i}\n{left}A{right}\n+\n{'I' * 60}\n"
+                          for i in range(4)))
+    ap = tmp_path / "asm.fasta"
+    ap.write_text(f">seqN\n{left}R{right}\n")
+    outs = []
+    for name, fn in (("jax", jax_run), ("port", run)):
+        anom, vcf = (str(tmp_path / f"{name}.{e}") for e in ("bed", "vcf"))
+        stdout = _stdout(fn, ["kreeq", "validate", "-f", str(ap), "-r",
+                              str(rp), "--detect-anomalies", anom, "-o",
+                              vcf])
+        outs.append((stdout, _read_text(anom), _read_text(vcf)))
+    assert outs[1] == outs[0]
+    assert outs[0][1] == "seqN\t11\t31\n"
+    assert [(r[0], r[1], r[3], r[4]) for r in _vcf_rows(outs[0][2])] == [
+        ("seqN", "31", "R", "A")]
 
 
 @pytest.mark.parametrize("ks,msg", [

@@ -1,6 +1,7 @@
 """PyTorch port, CUDA kernels against their plain versions on the card,
 on edge cases: empty input, all-SENTINEL input, one key repeated 10^6
-times, saturation, k = 32, SENTINEL queries.  Needs a CUDA device (the
+times, saturation, k = 32, SENTINEL queries and the per-position
+sentinels of the variants scan.  Needs a CUDA device (the
 `gpu` marker); run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m gpu
@@ -194,6 +195,46 @@ def test_probe_select_matches_plain(cuda, k):
           V.probe_select(*tab, qkeys[:0], qctx[:0]))
 
 
+@pytest.mark.parametrize("k", [21, 32])
+def test_probe_sorted_matches_plain(cuda, k):
+    """The generic probe on the variants scan's queries (at k = 32 the
+    per-position sentinels of invalid windows, which are searched and
+    never found), SENTINEL queries, random keys; a table of random keys
+    and counters up to 2^32 - 1; an empty table; no query."""
+    from kreeq_tpu_torch.constants import SENTINEL
+    from kreeq_tpu_torch.core.variants import _extract_sentinel
+    from kreeq_tpu_torch.ops import kmers as K
+    from kreeq_tpu_torch.ops.kernels import probe_sorted_cuda
+
+    rng = np.random.default_rng(k + 2)
+    genome = rng.integers(0, 4, 200_000).astype(np.uint8)
+    reads = np.concatenate([genome] * 3 + [genome[:50_000]])
+    keys, _isfw, edges, valid = K.kmer_positions(
+        torch.from_numpy(reads).to(cuda), k)
+    tab = K.count_sorted(keys, edges, valid)[:4]  # SENTINEL-tailed
+    asm = genome.copy()
+    asm[rng.integers(0, asm.shape[0], 400)] ^= 1
+    asm[rng.integers(0, asm.shape[0], 50)] = 4
+    skeys, _sisfw, svalid = _extract_sentinel(torch.from_numpy(asm).to(cuda),
+                                              k)
+    qkeys = torch.cat([skeys, torch.full((7,), SENTINEL, device=cuda),
+                       torch.from_numpy(rng.integers(
+                           -(1 << 63), SENTINEL, 1000,
+                           dtype=np.int64)).to(cuda)])
+    got = probe_sorted_cuda(*tab, qkeys)
+    want = K.probe_sorted(*tab, qkeys)
+    assert bool(want[0].any()) and bool(want[2].any())
+    assert not bool(got[0][:skeys.shape[0]][~svalid].any())
+    _same(got, want)
+
+    rtab = _table(rng, 300_000, cuda)
+    rq = torch.cat([rtab[0][::3], rtab[0][1::7] + 1])
+    _same(probe_sorted_cuda(*rtab, rq), K.probe_sorted(*rtab, rq))
+    empty = tuple(t[:0] for t in tab)
+    _same(probe_sorted_cuda(*empty, qkeys), K.probe_sorted(*empty, qkeys))
+    _same(probe_sorted_cuda(*tab, qkeys[:0]), K.probe_sorted(*tab, qkeys[:0]))
+
+
 def test_empty_probes_count_no_launch(cuda):
     """A probe with no position to search launches no kernel, so its
     launch count stays where it was."""
@@ -210,5 +251,9 @@ def test_empty_probes_count_no_launch(cuda):
     assert [t.shape[0] for t in (found, cov, right, left)] == [0] * 4
     sums = kernels.probe_qv_cuda(*tab, qkeys, qctx, 0, 5, 0)
     assert sums.tolist() == [0, 0]
+    found, cov, fw, bw = kernels.probe_sorted_cuda(*tab, qkeys)
+    assert [tuple(t.shape) for t in (found, cov, fw, bw)] == [
+        (0,), (0,), (0, 4), (0, 4)]
     assert kernels.LAUNCHES["probe_select"] == 0
     assert kernels.LAUNCHES["probe_qv"] == 0
+    assert kernels.LAUNCHES["probe_sorted"] == 0

@@ -53,18 +53,17 @@ def test_no_cuda_and_no_platform_raises(monkeypatch):
         D.resolve_device()
 
 
-@pytest.mark.parametrize("extra,what", [
-    (["-o", "x.vcf"], "-o x.vcf"),
-    (["-o", "x.gfa"], "-o x.gfa"),
-    (["--trace-dir", "t"], "--trace-dir"),
-    (["--detect-anomalies", "a.bed"], "--detect-anomalies"),
+@pytest.mark.parametrize("args,what", [
+    (["validate", "-r", __file__, "--trace-dir", "t"], "--trace-dir"),
+    (["subgraph", "-d", __file__], "subgraph mode"),
 ])
-def test_unported_options_raise(monkeypatch, extra, what):
+def test_unported_options_raise(monkeypatch, args, what):
     from kreeq_tpu_torch.cli.main import run
 
     monkeypatch.setenv("KREEQ_TPU_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run(["kreeq", "validate", "-r", __file__, *extra])
+    with pytest.raises(NotImplementedError, match=f"{what} is not yet "
+                       "ported"):
+        run(["kreeq", *args])
 
 
 def test_wrappers_refuse_other_devices():
