@@ -22,9 +22,11 @@ non-zero and never prints the final line):
   5. the whole slice at 0.5 Mbp on the card and on the CPU (plain
      versions), with 4,096-position variants windows: stdout and every
      output file (-o x.kreeq, x.bed, x.kwig, x.bkwig, x.hist, `union`,
-     --detect-anomalies; -o x.vcf, x.gfa, x.gfa2, x.gfa.gz on the first
-     100 kbp, since the host search of every branch point runs twice per
-     output) must be byte-equal, .gz files after decompression;
+     --detect-anomalies; -o x.vcf, x.gfa, x.gfa2, x.gfa.gz and the
+     `subgraph` runs (best-first, traversal, --no-collapse
+     --no-reference --search-depth 5, -p) on the first 100 kbp, since
+     the host search of every branch point runs twice per output) must
+     be byte-equal, .gz files after decompression;
   6. DB reuse with per-base tracks, end to end on phase 4's inputs:
      `validate -r reads.fq -k 21 -o reads.kreeq`, then `validate -d
      reads.kreeq -f asm.fa -o asm.bkwig`, then the decompressor's
@@ -42,7 +44,15 @@ non-zero and never prints the final line):
      host search of every branch point bounds its size; the table and
      the scan window are full size): the VCF must have rows, each REF
      must equal the assembly at its POS, and the generic probe must have
-     launched on both paths.
+     launched on both paths;
+  9. subgraph mode against phase 6's DB on the same 1,000,000 bases of
+     chr2: `subgraph -d reads.kreeq -f chr2_1mbp.fa --traversal-algorithm
+     traversal -o sub.gfa2`, then the default best-first `-o sub.gfa`;
+     per traversal round the new nodes and the survivor scan's and the
+     probe's milliseconds (CUDA events), the best-first boundary sources
+     and their host search seconds; the GFA's S and L/E lines must match
+     stdout's segment and edge counts, at least 90% of the cut's k-mers
+     must be blue seed nodes, and the generic probe must have launched.
 The second-to-last line is a JSON object with each kernel's launches,
 error and times; the last is {"ok": true, "device": {...}}.  Needs a
 CUDA device; imports no JAX.
@@ -78,7 +88,7 @@ CHUNK = 1 << 23  # bases of one read chunk (KREEQ_TPU_CHUNK default)
 CHROM_SHARES = (0.42, 0.25, 0.2, 0.13)
 LUT = np.frombuffer(b"ACGTN", np.uint8)
 CUT_CPU_VS_CUDA = 100_000  # bases of phase 5's variants outputs
-CUT_VCF = 1_000_000  # bases of chr2 in phase 8's VCF run
+CUT_VCF = 1_000_000  # bases of chr2 in phase 8's VCF run and phase 9
 
 # (name, LAUNCHES key, source, TPU kernel, the main path whose launches
 # the JSON line reports: phase 4's `-r -f` run, phase 6's track run or
@@ -237,19 +247,21 @@ def check_launches(launches, keys, path: str) -> None:
 
 
 def drive(argv, keys, name: str, device):
-    """One CLI run as a main path: the launch counts and the variants
-    search counts are set to 0 just before it and read just after; every
-    kernel in `keys` must have launched.  Returns (stdout, launches,
-    phases, wall seconds, peak device GiB)."""
+    """One CLI run as a main path: the launch counts and the variants and
+    subgraph search counts are set to 0 just before it and read just
+    after; every kernel in `keys` must have launched.  Returns (stdout,
+    launches, phases, wall seconds, peak device GiB)."""
     import torch
 
-    from kreeq_tpu_torch.core import variants
+    from kreeq_tpu_torch.core import subgraph, variants
     from kreeq_tpu_torch.ops import kernels
     from kreeq_tpu_torch.utils import log as klog
 
     kernels.reset_launches()
     klog._phases.clear()
     variants.SEARCH_STATS.update(branch_points=0, search_s=0.0)
+    subgraph.SUBGRAPH_STATS.update(seed=0, blue=0, rounds=[], sources=0,
+                                   search_s=0.0)
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     out = run_cli(argv)
@@ -485,6 +497,9 @@ def phase_cuda_vs_cpu(seed: int):
         _fa2, fq2, _rb2, _kc2 = make_inputs(rng, 0.2, 10, other)
         fa_cut = os.path.join(tmp, "chr1_cut.fa")
         head_fasta(fa, fa_cut, "chr1", CUT_CPU_VS_CUDA)
+        spans = os.path.join(tmp, "spans.bed")
+        with open(spans, "w") as fh:
+            fh.write("chr1\t1000\t60000\n")
 
         def commands(out):
             """argv of each command, with its output written under
@@ -503,6 +518,14 @@ def phase_cuda_vs_cpu(seed: int):
             for ext in ("vcf", "gfa", "gfa2", "gfa.gz"):
                 yield ["kreeq", "validate", "-d", a, "-f", fa_cut, "-o",
                        os.path.join(out, f"asm.{ext}")]
+            sub = ["kreeq", "subgraph", "-d", a, "-f", fa_cut]
+            yield sub + ["-o", os.path.join(out, "asm.sub.gfa")]
+            yield sub + ["--traversal-algorithm", "traversal", "-o",
+                         os.path.join(out, "asm.trav.gfa2")]
+            yield sub + ["--no-collapse", "--no-reference",
+                         "--search-depth", "5"]
+            yield sub + ["-p", spans, "-o",
+                         os.path.join(out, "asm.span.gfa.gz")]
 
         outs, stdouts, secs = {}, {}, {}
         old = DBG.VALIDATE_WINDOW
@@ -528,19 +551,26 @@ def phase_cuda_vs_cpu(seed: int):
                 raise AssertionError(f"{argv[1:]}: CUDA and CPU stdout "
                                      f"differ:\n{gpu}\n---\n{cpu}")
         names = sorted(os.listdir(outs["cuda"]))
-        if names != ["a.kreeq", "ab.kreeq", "asm.anom.bed", "asm.bed",
-                     "asm.bkwig", "asm.gfa", "asm.gfa.gz", "asm.gfa2",
-                     "asm.hist", "asm.kwig", "asm.vcf", "b.kreeq"]:
+        if names != sorted([
+                "a.kreeq", "ab.kreeq", "asm.anom.bed", "asm.bed",
+                "asm.bkwig", "asm.gfa", "asm.gfa.gz", "asm.gfa2", "asm.hist",
+                "asm.kwig", "asm.vcf", "b.kreeq", "asm.sub.gfa",
+                "asm.trav.gfa2", "asm.span.gfa.gz"]):
             raise AssertionError(f"unexpected outputs {names}")
         same_output(outs["cuda"], outs["cpu"])
         with open(os.path.join(outs["cpu"], "asm.vcf")) as fh:
             vcf_rows = sum(1 for line in fh if not line.startswith("#"))
         if vcf_rows == 0:
             raise AssertionError("phase 5's VCF has no rows")
+        segs = [_graph_stats(out)["# segments"]
+                for out in stdouts["cpu"][-4:]]
+        if min(segs) < 100:
+            raise AssertionError(f"phase 5's subgraphs hold {segs} segments")
     log(f"[5 cuda vs cpu] 0.5 Mbp, 30x: stdout of {len(stdouts['cpu'])} "
-        f"commands and {', '.join(names)} byte-equal (vcf/gfa on the "
-        f"first {CUT_CPU_VS_CUDA} bases, {vcf_rows} VCF rows; cuda "
-        f"{secs['cuda']:.2f} s, cpu {secs['cpu']:.2f} s)")
+        f"commands and {', '.join(names)} byte-equal (vcf/gfa/subgraph on "
+        f"the first {CUT_CPU_VS_CUDA} bases, {vcf_rows} VCF rows, "
+        f"subgraphs of {segs} segments; cuda {secs['cuda']:.2f} s, cpu "
+        f"{secs['cpu']:.2f} s)")
 
 
 def phase_db_tracks(fq, fa, tmp, qv_rows, device):
@@ -683,6 +713,138 @@ def phase_variants(fa, tmp, qv_rows, device):
     return l_vcf
 
 
+def _graph_stats(stdout: str) -> dict:
+    """The subgraph summary's and the graph statistics' integer lines of
+    a `subgraph` run's stdout (the DB summary after them is left out)."""
+    lines = stdout.splitlines()
+    end = lines.index("DBG Summary statistics:") \
+        if "DBG Summary statistics:" in lines else len(lines)
+    out = {}
+    for line in lines[:end]:
+        name, _sep, val = line.partition(": ")
+        if val.isdigit():
+            out[name] = int(val)
+    return out
+
+
+def _snapshot(sub):
+    return [(k, tuple(n.fw), tuple(n.bw), n.cov, n.color)
+            for k, n in sub.items()]
+
+
+def _subgraph_probes(db, cut, device):
+    """B5 against its plain version at the subgraph path's own shapes,
+    none a multiple of the kernel's block: the cut's extraction keys,
+    the first traversal round's survivors, and the best-first
+    prefilter's unique survivors, all against the full table.  Also
+    extraction with native/subnode_ext and with the pure-Python nodes,
+    which must give the same dict."""
+    import torch
+
+    from kreeq_tpu_torch.config import UserInput
+    from kreeq_tpu_torch.core import subgraph
+    from kreeq_tpu_torch.core.dbg import DBG
+    from kreeq_tpu_torch.io.fastx import load_genome
+    from kreeq_tpu_torch.io.kreeqdb import read_kreeq
+    from kreeq_tpu_torch.io.sequence import Genome
+    from kreeq_tpu_torch.ops import kernels
+    from kreeq_tpu_torch.ops import kmers as Km
+    from kreeq_tpu_torch.ops.frontier import survivors
+
+    table = read_kreeq(db, device)
+    genome = Genome()
+    load_genome(cut, genome)
+    dbg = DBG(UserInput(kmer_len=K), table)
+    dbg.load_genome(genome)
+    ext = subgraph.get_module() is not None
+    if not ext:
+        raise AssertionError("native/subnode_ext did not build")
+    t0 = time.perf_counter()
+    sub = subgraph.extract_subgraph(dbg)
+    ext_s = time.perf_counter() - t0
+    saved = subgraph.get_module
+    subgraph.get_module = lambda: None
+    try:
+        t0 = time.perf_counter()
+        plain = subgraph.extract_subgraph(dbg)
+        py_s = time.perf_counter() - t0
+    finally:
+        subgraph.get_module = saved
+    if _snapshot(plain) != _snapshot(sub):
+        raise AssertionError("extraction: pure-Python nodes differ from "
+                             "native/subnode_ext's")
+    log(f"[9 subgraph] native/subnode_ext loaded; extraction of "
+        f"{len(sub)} nodes {ext_s:.2f} s with it, {py_s:.2f} s with the "
+        f"pure-Python nodes, the same dict")
+
+    seg = max(genome.segments, key=len)
+    qkeys = Km.kmer_positions(torch.from_numpy(seg.codes).to(device), K)[0]
+    fkeys, ffw, fbw = subgraph._node_arrays(sub, device)
+    members = torch.sort(fkeys).values
+    rkeys = survivors(fkeys, ffw, fbw, members, K, 0, dedup=True)[0]
+    pkeys = torch.unique(survivors(fkeys, ffw, fbw, members, K,
+                                   dbg.ui.cov_cutoff, dedup=False)[0])
+    tab = (table.keys, table.cov, table.fw, table.bw)
+    for name, q in (("extraction", qkeys), ("round 1", rkeys),
+                    ("prefilter", pkeys)):
+        args = (*tab, q)
+        compare(f"probe_sorted ({name})", kernels.probe_sorted_cuda(*args),
+                Km.probe_sorted(*args))
+        log(f"    probe_sorted {name:10s} q={q.shape[0]} t={len(table)} "
+            f"kernel {cuda_ms(lambda: kernels.probe_sorted_cuda(*args)):.3f}"
+            f" ms  plain {cuda_ms(lambda: Km.probe_sorted(*args)):.3f} ms  "
+            f"exact")
+
+
+def phase_subgraph(tmp, device):
+    """Subgraph mode at full table size, against phase 6's DB, on phase
+    8's CUT_VCF bases of chr2: B5 held against its plain version at this
+    path's shapes, then traversal and best-first.  Each CLI run is a
+    main path (`drive`)."""
+    from kreeq_tpu_torch.core import subgraph
+
+    os.environ.pop("KREEQ_TPU_PLATFORM", None)
+    db = os.path.join(tmp, "reads.kreeq")
+    cut = os.path.join(tmp, "chr2_1mbp.fa")
+    kmers = CUT_VCF - K + 1
+    _subgraph_probes(db, cut, device)
+    for alg, out in (("traversal", "sub.gfa2"), ("best-first", "sub.gfa")):
+        gfa = os.path.join(tmp, out)
+        argv = ["kreeq", "subgraph", "-d", db, "-f", cut,
+                "--traversal-algorithm", alg, "-o", gfa]
+        stdout, launches, phases, wall, peak = drive(
+            argv, ("probe_sorted",), f"subgraph {alg}", device)
+        st = dict(subgraph.SUBGRAPH_STATS)
+        stats = _graph_stats(stdout)
+        with open(gfa) as fh:
+            kinds = [line[0] for line in fh]
+        edge = "E" if out.endswith("gfa2") else "L"
+        if (kinds.count("S") != stats["# segments"]
+                or kinds.count(edge) != stats["# edges"]):
+            raise AssertionError(
+                f"{out}: {kinds.count('S')} S and {kinds.count(edge)} "
+                f"{edge} lines, stdout {stats['# segments']} segments and "
+                f"{stats['# edges']} edges")
+        if st["blue"] < 0.9 * kmers or stats["Distinct kmers"] < st["seed"]:
+            raise AssertionError(
+                f"{alg}: {st['blue']} blue of {st['seed']} seed nodes for "
+                f"{kmers} k-mers; {stats['Distinct kmers']} distinct")
+        log(f"[9 subgraph] {alg}: wall {wall:.2f} s; "
+            + ", ".join(f"{n} {t:.2f} s" for n, t in phases.items())
+            + f"; peak device memory {peak:.2f} GiB; launches {launches}")
+        log(f"    seed {st['seed']} nodes ({st['blue']} blue), distinct "
+            f"{stats['Distinct kmers']}, {stats['# segments']} segments, "
+            f"{stats['# edges']} edges, {stats['# bubbles']} bubbles")
+        for i, (found, scan_ms, probe_ms) in enumerate(st["rounds"]):
+            log(f"    round {i + 1}: {found} new nodes, survivor scan "
+                f"{scan_ms:.3f} ms, probe {probe_ms:.3f} ms")
+        if st["sources"]:
+            log(f"    boundary sources {st['sources']} "
+                f"({st['sources'] / st['seed']:.2%} of the seed), host "
+                f"search {st['search_s']:.2f} s "
+                f"({st['search_s'] / st['sources'] * 1e3:.3f} ms each)")
+
+
 def _busy_s(events) -> float:
     """Seconds in which the card ran at least one kernel, copy or set,
     from the device events of a chrome trace."""
@@ -807,6 +969,7 @@ def main() -> int:
         if args.profile:
             phase_profile(fa, tmp, args.profile, device)
         launches["variants"] = phase_variants(fa, tmp, qv_rows, device)
+        phase_subgraph(tmp, device)
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")
 
     print(json.dumps({"kernels": [

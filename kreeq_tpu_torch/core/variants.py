@@ -39,7 +39,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..constants import KEY_BIAS, SENTINEL, keys_to_u64, revcom
+from ..constants import SENTINEL, keys_to_u64, revcom
 from .fibheap import FibonacciHeap
 from .keys import canonical, key_to_seq, next_key_bw, next_key_fw
 
@@ -231,43 +231,15 @@ def _extract_sentinel(codes: torch.Tensor, k: int):
     return torch.where(valid, keys, sentinels), isfw, valid
 
 
-def _lsr(x: torch.Tensor, s: int) -> torch.Tensor:
-    """Logical right shift of int64 bit patterns, 0 < s < 64: torch's
-    >> on int64 is arithmetic, so the sign bit is masked off."""
-    return (x >> s) & ((1 << (64 - s)) - 1)
-
-
 def _candidate_scan(keys, isfw, found, covs, fws, bws, cutoff: int, k: int):
-    """Depth-0 candidate-edge scan (the JAX _candidate_scan on int64).
-    A neighbour's reverse complement is the source rc shifted one base
-    the other way, so one [P] revcomp serves all eight neighbours.
+    """Depth-0 candidate-edge scan (the JAX _candidate_scan on int64):
+    each position's four fw or four bw canonical neighbours
+    (ops/frontier.neighbors8), by its orientation.  Returns (keys,
+    isfw, found & has_candidate, covs, fws, bws)."""
+    from ..ops.frontier import neighbors8
 
-    The arithmetic runs on the unbiased u64 bit patterns held in int64,
-    with every right shift logical (`_lsr`) and the k = 32 mask
-    2^64 - 1 written as -1; the unsigned minimum of two neighbours is
-    the signed minimum of their biased patterns, which are the port's
-    keys.  Returns (keys, isfw, found & has_candidate, covs, fws, bws)."""
-    m = (1 << (2 * k)) - 1 if k < 32 else -1
-    u = keys ^ KEY_BIAS
-    x = ((~u) & m) << (64 - 2 * k)
-    for sh, mm in ((2, 0x3333333333333333), (4, 0x0F0F0F0F0F0F0F0F),
-                   (8, 0x00FF00FF00FF00FF), (16, 0x0000FFFF0000FFFF)):
-        x = ((x & mm) << sh) | (_lsr(x, sh) & mm)
-    rc = ((x << 32) | _lsr(x, 32)) & m
-
-    bases = torch.arange(4, dtype=torch.int64, device=keys.device)[None, :]
-    comp = 3 - bases
-    top = 2 * (k - 1)
-    raw_fw = _lsr(u[:, None], 2) | (bases << top)
-    rc_fw = ((rc[:, None] << 2) & m) | comp
-    raw_bw = ((u[:, None] << 2) & m) | bases
-    rc_bw = _lsr(rc[:, None], 2) | (comp << top)
-
-    def umin(a, b):
-        return torch.minimum(a ^ KEY_BIAS, b ^ KEY_BIAS)
-
-    cand = torch.where(isfw[:, None], umin(raw_fw, rc_fw),
-                       umin(raw_bw, rc_bw))
+    nb = neighbors8(keys, k)
+    cand = torch.where(isfw[:, None], nb[:, 0::2], nb[:, 1::2])
     cond = torch.where(isfw[:, None], fws > 0, bws > cutoff)
     # past the last position: SENTINEL, which no canonical candidate
     # equals (TT..T is never canonical)

@@ -146,13 +146,15 @@ def print_hist(dbg) -> None:
 
 
 def print_gfa(dbg) -> None:
-    """The assembly graph, with segments split into bubbles at their
-    variants (subgraph mode's graph comes with that mode, not yet
-    ported)."""
+    """validate: the assembly graph, with segments split into bubbles at
+    their variants; subgraph: the collapsed subgraph."""
     from .gfa_write import write_gfa
 
-    dbg.genome.sort_segments_by_original()
-    write_gfa(dbg.genome, dbg.ui.out_file, dbg.ui)
+    if dbg.ui.mode == 0:
+        dbg.genome.sort_segments_by_original()
+        write_gfa(dbg.genome, dbg.ui.out_file, dbg.ui)
+    else:
+        write_gfa(dbg.subgraph_gfa, dbg.ui.out_file, dbg.ui)
 
 
 def print_vcf(dbg, out: TextIO = None) -> None:

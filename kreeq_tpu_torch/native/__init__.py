@@ -20,45 +20,40 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "kreeq_native.cpp")
-_BUILD = os.path.join(os.path.dirname(_HERE), "_build")
-_LIB = os.path.join(_BUILD, "libkreeq_native.so")
-_HASH = _LIB + ".srchash"  # content hash of _SRC the .so was built from
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+_LIB = os.path.join(BUILD_DIR, "libkreeq_native.so")
 
 _lib = None
 _tried = False
 
 
-def _src_hash() -> str:
-    with open(_SRC, "rb") as fh:
-        return hashlib.sha256(fh.read()).hexdigest()
-
-
-def _build() -> bool:
-    os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{_LIB}.{os.getpid()}.tmp"
-    cmd = ["g++", "-O3", "-std=gnu++17", "-shared", "-fPIC", _SRC,
-           "-o", tmp, "-lz"]
+def build(src: str, lib: str, cmd: List[str], key: str = "") -> bool:
+    """Compile `src` into `lib` with `cmd` (the compiler command without
+    its output path) unless `lib` was built from the same source and
+    `key`: a content hash decides, since mtimes don't survive git.
+    Returns False when the compiler is missing or fails."""
+    with open(src, "rb") as fh:
+        want = hashlib.sha256(fh.read()).hexdigest() + key
+    stamp = lib + ".srchash"
     try:
-        res = subprocess.run(cmd, capture_output=True, timeout=120)
+        with open(stamp) as fh:
+            if fh.read().strip() == want and os.path.exists(lib):
+                return True
+    except OSError:
+        pass
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    try:
+        res = subprocess.run(cmd + ["-o", tmp], capture_output=True,
+                             timeout=120)
     except (OSError, subprocess.TimeoutExpired):
         return False
     if res.returncode != 0:
         return False
-    os.replace(tmp, _LIB)
-    with open(_HASH, "w") as fh:
-        fh.write(_src_hash())
+    os.replace(tmp, lib)
+    with open(stamp, "w") as fh:
+        fh.write(want)
     return True
-
-
-def _stale() -> bool:
-    """Rebuild keyed on source content hash (mtimes don't survive git)."""
-    if not os.path.exists(_LIB):
-        return True
-    try:
-        with open(_HASH) as fh:
-            return fh.read().strip() != _src_hash()
-    except OSError:
-        return True
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -66,7 +61,8 @@ def get_lib() -> Optional[ctypes.CDLL]:
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if _stale() and not _build():
+    if not build(_SRC, _LIB, ["g++", "-O3", "-std=gnu++17", "-shared",
+                              "-fPIC", _SRC, "-lz"]):
         return None
     try:
         lib = ctypes.CDLL(_LIB)

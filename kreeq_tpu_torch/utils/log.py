@@ -107,3 +107,21 @@ def print_profile() -> None:
             sys.stderr.write(f"{name:<30s} {dt * 1e3:10.1f} ms\n")
 
 
+@contextmanager
+def trace(trace_dir: str, device):
+    """--trace-dir: a torch.profiler trace of the block (host activity,
+    plus the card's on CUDA), written to trace_dir/trace.json when the
+    block ends, also when it raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

@@ -1,8 +1,9 @@
 """PyTorch port, CUDA kernels against their plain versions on the card,
 on edge cases: empty input, all-SENTINEL input, one key repeated 10^6
 times, saturation, k = 32, SENTINEL queries and the per-position
-sentinels of the variants scan.  Needs a CUDA device (the
-`gpu` marker); run on the card with
+sentinels of the variants scan; and the subgraph searches' neighbour
+scan (plain torch ops) on the card against the CPU.  Needs a CUDA device
+(the `gpu` marker); run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m gpu
 
@@ -257,3 +258,56 @@ def test_empty_probes_count_no_launch(cuda):
     assert kernels.LAUNCHES["probe_select"] == 0
     assert kernels.LAUNCHES["probe_qv"] == 0
     assert kernels.LAUNCHES["probe_sorted"] == 0
+
+
+@pytest.mark.parametrize("k", [21, 31, 32])
+def test_frontier_scan_cuda_equals_cpu(cuda, k):
+    """neighbors8 and survivors (plain torch ops, run on the card by
+    the subgraph searches) give the CPU's values and scan order."""
+    from kreeq_tpu_torch.ops.frontier import neighbors8, survivors
+    from kreeq_tpu_torch.ops.kmers import kmer_positions
+
+    rng = np.random.default_rng(k)
+    codes = torch.from_numpy(rng.integers(0, 4, 200_000).astype(np.uint8))
+    keys = torch.unique(kmer_positions(codes, k)[0])
+    keys = keys[torch.from_numpy(rng.permutation(keys.shape[0]))]
+    fw = torch.from_numpy(rng.integers(0, 3, (keys.shape[0], 4)))
+    bw = torch.from_numpy(rng.integers(0, 3, (keys.shape[0], 4)))
+    members = torch.sort(keys[::2]).values
+    _same((neighbors8(keys.to(cuda), k),), (neighbors8(keys, k),))
+    for cutoff, dedup in ((0, True), (1, False)):
+        got = survivors(keys.to(cuda), fw.to(cuda), bw.to(cuda),
+                        members.to(cuda), k, cutoff, dedup)
+        want = survivors(keys, fw, bw, members, k, cutoff, dedup)
+        assert want[0].shape[0] > 1000
+        _same(got, want)
+    empty = members[:0]
+    _same(survivors(keys.to(cuda), fw.to(cuda), bw.to(cuda), empty.to(cuda),
+                    k, 0, True), survivors(keys, fw, bw, empty, k, 0, True))
+
+
+def test_trace_dir_records_card_kernels(cuda, tmp_path):
+    """--trace-dir on the card: the chrome trace holds the card's
+    kernels (the probe_qv kernel among them) beside the host's ops."""
+    import contextlib
+    import io
+    import json
+
+    from kreeq_tpu_torch.cli.main import run
+
+    rng = np.random.default_rng(1)
+    genome = "".join(rng.choice(list("ACGT"), 3000))
+    reads = tmp_path / "reads.fq"
+    reads.write_text("".join(f"@r{i}\n{genome[s:s + 100]}\n+\n{'I' * 100}\n"
+                             for i, s in enumerate(range(0, 2900, 10))))
+    asm = tmp_path / "asm.fa"
+    asm.write_text(f">a\n{genome}\n")
+    trace = tmp_path / "trace"
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert run(["kreeq", "validate", "-r", str(reads), "-f", str(asm),
+                    "--trace-dir", str(trace)]) == 0
+    with open(trace / "trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert any("probe_qv" in name for name in kernels), sorted(kernels)
+    assert any(e.get("name", "").startswith("aten::") for e in events)

@@ -1,8 +1,12 @@
 """PyTorch port: package boundaries and device selection."""
 
+import contextlib
+import io
+import json
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -53,17 +57,47 @@ def test_no_cuda_and_no_platform_raises(monkeypatch):
         D.resolve_device()
 
 
-@pytest.mark.parametrize("args,what", [
-    (["validate", "-r", __file__, "--trace-dir", "t"], "--trace-dir"),
-    (["subgraph", "-d", __file__], "subgraph mode"),
-])
-def test_unported_options_raise(monkeypatch, args, what):
+def _small_inputs(tmp_path):
+    rng = np.random.default_rng(0)
+    genome = "".join(rng.choice(list("ACGT"), 600))
+    rp = tmp_path / "reads.fq"
+    rp.write_text("".join(f"@r{i}\n{genome[s:s + 100]}\n+\n{'I' * 100}\n"
+                          for i, s in enumerate(range(0, 500, 20))))
+    ap = tmp_path / "asm.fa"
+    ap.write_text(f">a\n{genome[:300]}\n")
+    return str(rp), str(ap)
+
+
+def _run_cpu(monkeypatch, argv):
     from kreeq_tpu_torch.cli.main import run
 
     monkeypatch.setenv("KREEQ_TPU_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match=f"{what} is not yet "
-                       "ported"):
-        run(["kreeq", *args])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert run(["kreeq", *argv]) == 0
+    return buf.getvalue()
+
+
+def test_trace_dir_writes_trace(tmp_path, monkeypatch):
+    """--trace-dir: a torch.profiler chrome trace of the run."""
+    rp, ap = _small_inputs(tmp_path)
+    trace = tmp_path / "trace"
+    out = _run_cpu(monkeypatch, ["validate", "-r", rp, "-f", ap,
+                                 "--trace-dir", str(trace)])
+    assert "Kreeq" in out
+    with open(trace / "trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+
+
+def test_subgraph_runs(tmp_path, monkeypatch):
+    """Subgraph mode runs in the port, from a DB the port wrote."""
+    rp, ap = _small_inputs(tmp_path)
+    db = str(tmp_path / "reads.kreeq")
+    _run_cpu(monkeypatch, ["validate", "-r", rp, "-o", db])
+    out = _run_cpu(monkeypatch, ["subgraph", "-d", db, "-f", ap])
+    assert out.startswith("Subgraph summary statistics:\n")
+    assert "# segments: " in out and "DBG Summary statistics:" in out
 
 
 def test_wrappers_refuse_other_devices():
