@@ -8,11 +8,17 @@ non-zero and never prints the final line):
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: compile the CUDA kernels from ops/csrc/ with nvcc;
   3. kernels against their plain PyTorch versions on the card, at the
-     main path's shapes (one 8M-base read chunk; the two largest parts
-     of a build's tree merge; one full 4,194,304-position validate
-     window for each probe; one full variants window of per-position
-     sentinel keys for the generic probe), exact equality, median times
-     with CUDA events;
+     main path's shapes: the build's count + merge on the card, timed;
+     the same build again with every merge exact against the plain
+     version and timed with CUDA events (the sum of the kernel's times
+     and of its bound); one 8M-base read chunk, as it is, with a
+     poly-A pile of 10^6 records and as sorted random keys (every tile
+     full of heads); the build's largest merge; one full
+     4,194,304-position validate window for each probe; one full
+     variants window of per-position sentinel keys for the generic
+     probe; exact equality, median times with CUDA events, each beside
+     its bound (the bytes these inputs need at 3.35 TB/s: a SENTINEL
+     row's key only);
   4. end to end: `kreeq validate -r reads.fq -f asm.fa -k 21` through
      the port's CLI on the card, on a generated yeast-scale assembly
      (planted SNV/INS/DEL, an N run, IUPAC bases, short contigs) and
@@ -54,7 +60,7 @@ non-zero and never prints the final line):
      stdout's segment and edge counts, at least 90% of the cut's k-mers
      must be blue seed nodes, and the generic probe must have launched.
 The second-to-last line is a JSON object with each kernel's launches,
-error and times; the last is {"ok": true, "device": {...}}.  Needs a
+error, times, bound and shape; the last is {"ok": true, "device": {...}}.  Needs a
 CUDA device; imports no JAX.
 """
 
@@ -89,6 +95,8 @@ CHROM_SHARES = (0.42, 0.25, 0.2, 0.13)
 LUT = np.frombuffer(b"ACGTN", np.uint8)
 CUT_CPU_VS_CUDA = 100_000  # bases of phase 5's variants outputs
 CUT_VCF = 1_000_000  # bases of chr2 in phase 8's VCF run and phase 9
+PILE = 1_000_000  # records of phase 3's poly-A run
+HBM_BYTES_PER_S = 3.35e12  # the H100's peak memory rate (data sheet)
 
 # (name, LAUNCHES key, source, TPU kernel, the main path whose launches
 # the JSON line reports: phase 4's `-r -f` run, phase 6's track run or
@@ -340,6 +348,45 @@ def phase_build():
             log(f"    {name}: {line.split(':', 1)[1].strip()}")
 
 
+def bound_ms(nbytes: float) -> float:
+    """The least milliseconds to move `nbytes` at the H100's 3.35 TB/s."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def real_rows(keys) -> int:
+    """Rows that hold a key: the rows whose counters must be read."""
+    from kreeq_tpu_torch.constants import SENTINEL
+
+    return int((keys != SENTINEL).sum())
+
+
+def merge_bound_ms(ka, kb) -> float:
+    """A merge's bound: every key read (8 B), the counters of the real
+    rows only (72 B; a SENTINEL row yields no row), every output row
+    written (80 B)."""
+    m = ka.shape[0] + kb.shape[0]
+    return bound_ms(8 * m + 72 * (real_rows(ka) + real_rows(kb)) + 80 * m)
+
+
+def count_bound_ms(skeys) -> float:
+    """count_runs' bound: every key read (8 B), the edge byte of the
+    real records only, every output row written (80 B)."""
+    p = skeys.shape[0]
+    return bound_ms(8 * p + real_rows(skeys) + 80 * p)
+
+
+def touched_rows(tkeys, qkeys) -> int:
+    """Distinct table rows that the queries find: the rows a probe must
+    read at the least."""
+    import torch
+
+    from kreeq_tpu_torch.constants import SENTINEL
+
+    row = torch.searchsorted(tkeys, qkeys).clamp_(max=tkeys.shape[0] - 1)
+    found = (tkeys[row] == qkeys) & (qkeys != SENTINEL)
+    return int(torch.unique(row[found]).shape[0])
+
+
 def phase_kernels(fq: str, fa: str, device):
     """Kernel against plain version at the main path's shapes."""
     import torch
@@ -354,32 +401,67 @@ def phase_kernels(fq: str, fa: str, device):
     from kreeq_tpu_torch.ops import kmers as Km
     from kreeq_tpu_torch.ops import validate as V
 
-    class RecordingMerger(TreeMerger):
-        """Keeps the operands of the build's largest merge."""
+    class CheckingMerger(TreeMerger):
+        """Holds every merge of the build exactly against the plain
+        version: TreeMerger.merge runs as it is, with the kernel's wrapper
+        wrapped to time each call with CUDA events and keep its operands
+        (the largest merge's for the timing below)."""
 
-        largest = None
+        def __init__(self):
+            super().__init__()
+            self.merges = []  # (na, nb, kernel ms, bound ms)
+            self.largest = None
 
         def merge(self, stored, fresh):
-            a = self._trim(stored)
-            rows = a[0].shape[0] + fresh[0].shape[0]
-            if self.largest is None or rows > self.largest[0]:
-                self.largest = (rows, a[:4], fresh[:4])
-            return super().merge(a, fresh)
+            wrapper = kernels.merge_sorted_cuda
+            calls = []
+
+            def timed(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                got = wrapper(*args)
+                end.record()
+                end.synchronize()
+                calls.append((args, got, start.elapsed_time(end)))
+                return got
+
+            kernels.merge_sorted_cuda = timed
+            try:
+                got = super().merge(stored, fresh)
+            finally:
+                kernels.merge_sorted_cuda = wrapper
+            if len(calls) != 1 or calls[0][1] is not got:
+                raise AssertionError(f"TreeMerger.merge made {len(calls)} "
+                                     f"kernel calls, not one")
+            args, _got, ms = calls[0]
+            a, b = args[:4], args[4:]
+            na, nb = a[0].shape[0], b[0].shape[0]
+            compare(f"merge_sorted (merge {len(self.merges) + 1}, na={na} "
+                    f"nb={nb})", got, Km.merge_sorted(*a, *b))
+            self.merges.append((na, nb, ms, merge_bound_ms(a[0], b[0])))
+            if self.largest is None or na + nb > sum(
+                    t[0].shape[0] for t in self.largest):
+                self.largest = (a, b)
+            return got
 
     # the build of the main path, driven step by step: host ingest
     # first, then count and merge on the card
     t0 = time.perf_counter()
     bufs = list(Km.pack_reads(iter_reads(fq), K, CHUNK))
     t1 = time.perf_counter()
-    tm = RecordingMerger()
-    first = None
-    for buf in bufs:
-        codes = torch.from_numpy(buf).to(device)
-        keys, _isfw, edges, valid = Km.kmer_positions(codes, K)
-        if first is None:
-            first = (keys, edges, valid)
-        tm.push(kernels.count_sorted_cuda(keys, edges, valid))
-    table = KmerTable(K, *tm.finalize())
+
+    def build(tm):
+        first = None
+        for buf in bufs:
+            codes = torch.from_numpy(buf).to(device)
+            keys, _isfw, edges, valid = Km.kmer_positions(codes, K)
+            if first is None:
+                first = (keys, edges, valid)
+            tm.push(kernels.count_sorted_cuda(keys, edges, valid))
+        return first, KmerTable(K, *tm.finalize())
+
+    first, table = build(TreeMerger())
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     log(f"[3 kernels] ingest (parse + pack, host) {t1 - t0:.2f} s for "
@@ -387,24 +469,64 @@ def phase_kernels(fq: str, fa: str, device):
         f"{len(table)} rows")
     res = {"ingest_s": t1 - t0}
 
+    # the same build again, every merge held against the plain version
+    tm = CheckingMerger()
+    _first, again = build(tm)
+    compare("the checked build's table", (again.keys, again.cov, again.fw,
+                                          again.bw),
+            (table.keys, table.cov, table.fw, table.bw))
+    del again
+    kms = sum(t[2] for t in tm.merges)
+    bms = sum(t[3] for t in tm.merges)
+    na, nb, lms, lbound = max(tm.merges, key=lambda t: t[0] + t[1])
+    log(f"    {len(tm.merges)} merges of the build, each exact against the "
+        f"plain version: kernel {kms:.3f} ms in all against a bound of "
+        f"{bms:.3f} ms ({bms / kms:.1%}); the largest na={na} nb={nb} "
+        f"{lms:.3f} ms (bound {lbound:.3f} ms)")
+
     skeys, sedges = Km.sort_records(*first)
     sort_ms = cuda_ms(lambda: Km.sort_records(*first))
+    p = skeys.shape[0]
     res["count_runs"] = dict(
-        shape=f"P={skeys.shape[0]}",
+        shape=f"P={p}", bound_ms=count_bound_ms(skeys),
         max_abs_err=compare("count_runs", kernels.count_runs_cuda(
             skeys, sedges), Km.count_runs(skeys, sedges)),
         ms=cuda_ms(lambda: kernels.count_runs_cuda(skeys, sedges)),
         plain_ms=cuda_ms(lambda: Km.count_runs(skeys, sedges)))
     log(f"    sort_records (torch.sort + edge gather) before count_runs: "
         f"{sort_ms:.3f} ms")
+    # long runs: the chunk's first PILE records become one poly-A run
+    # (its key, code 0, is the least key, so the order holds)
+    pkeys = skeys.clone()
+    pkeys[:PILE] = torch.iinfo(torch.int64).min
+    compare("count_runs (pile)", kernels.count_runs_cuda(pkeys, sedges),
+            Km.count_runs(pkeys, sedges))
+    log(f"    count_runs with a poly-A pile of {PILE} records, P={p}: "
+        f"kernel {cuda_ms(lambda: kernels.count_runs_cuda(pkeys, sedges)):.3f}"
+        f" ms  plain {cuda_ms(lambda: Km.count_runs(pkeys, sedges)):.3f} ms"
+        f"  exact")
+    # every tile full of heads: P sorted, all but surely distinct keys
+    gen = torch.Generator(device=device).manual_seed(7)
+    dkeys = torch.randint(0, 1 << 62, (p,), device=device,
+                          generator=gen).sort().values
+    compare("count_runs (distinct)", kernels.count_runs_cuda(dkeys, sedges),
+            Km.count_runs(dkeys, sedges))
+    log(f"    count_runs on {p} sorted random keys "
+        f"({int(Km.count_runs(dkeys, sedges)[4])} distinct): kernel "
+        f"{cuda_ms(lambda: kernels.count_runs_cuda(dkeys, sedges)):.3f} ms"
+        f"  plain {cuda_ms(lambda: Km.count_runs(dkeys, sedges)):.3f} ms"
+        f"  bound {count_bound_ms(dkeys):.3f} ms  exact")
+    del pkeys, dkeys
 
-    _rows, a, b = tm.largest
+    a, b = tm.largest
     res["merge_sorted"] = dict(
         shape=f"na={a[0].shape[0]} nb={b[0].shape[0]}",
+        bound_ms=merge_bound_ms(a[0], b[0]),
         max_abs_err=compare("merge_sorted", kernels.merge_sorted_cuda(
             *a, *b), Km.merge_sorted(*a, *b)),
         ms=cuda_ms(lambda: kernels.merge_sorted_cuda(*a, *b)),
         plain_ms=cuda_ms(lambda: Km.merge_sorted(*a, *b)))
+    del tm, a, b
 
     genome = Genome()
     load_genome(fa, genome)
@@ -418,8 +540,12 @@ def phase_kernels(fq: str, fa: str, device):
     qkeys, qctx = V._extract_ctx_qv(wbuf, K)
     tab = (table.keys, table.cov, table.fw, table.bw)
     args = (*tab, qkeys, qctx, 1, 1 + WINDOW, 0)
+    # queries (key, ctx); per found row its key, cov and the two selected
+    # counters; two int64 sums out
     res["probe_qv"] = dict(
         shape=f"q={WINDOW} t={len(table)}",
+        bound_ms=bound_ms(9 * WINDOW + 32 * touched_rows(
+            table.keys, qkeys[1:1 + WINDOW]) + 16),
         max_abs_err=compare("probe_qv", (kernels.probe_qv_cuda(*args),),
                             (V.qv_sums(*args),)),
         ms=cuda_ms(lambda: kernels.probe_qv_cuda(*args)),
@@ -428,8 +554,13 @@ def phase_kernels(fq: str, fa: str, device):
     # window plus one position of context on each side
     skeys, _isfw, _valid, sctx = V._extract_ctx(wbuf, K)
     sargs = (*tab, skeys, sctx)
+    q = skeys.shape[0]
+    # queries; per found row key, cov and two counters; found, cov,
+    # right, left out
     res["probe_select"] = dict(
-        shape=f"q={skeys.shape[0]} t={len(table)}",
+        shape=f"q={q} t={len(table)}",
+        bound_ms=bound_ms(9 * q + 32 * touched_rows(table.keys, skeys)
+                          + 25 * q),
         max_abs_err=compare("probe_select",
                             kernels.probe_select_cuda(*sargs),
                             V.probe_select(*sargs)),
@@ -440,8 +571,12 @@ def phase_kernels(fq: str, fa: str, device):
     vbuf = torch.from_numpy(seg.codes[:WINDOW + K - 1]).to(device)
     vkeys, _visfw, _vvalid = _extract_sentinel(vbuf, K)
     vargs = (*tab, vkeys)
+    q = vkeys.shape[0]
+    # queries; every found row whole; found and a whole row out
     res["probe_sorted"] = dict(
-        shape=f"q={vkeys.shape[0]} t={len(table)}",
+        shape=f"q={q} t={len(table)}",
+        bound_ms=bound_ms(8 * q + 80 * touched_rows(table.keys, vkeys)
+                          + 73 * q),
         max_abs_err=compare("probe_sorted",
                             kernels.probe_sorted_cuda(*vargs),
                             Km.probe_sorted(*vargs)),
@@ -450,7 +585,8 @@ def phase_kernels(fq: str, fa: str, device):
     for name, *_rest in KERNELS:
         r = res[name]
         log(f"    {name:13s} {r['shape']:28s} kernel {r['ms']:9.3f} ms  "
-            f"plain {r['plain_ms']:9.3f} ms  exact")
+            f"plain {r['plain_ms']:9.3f} ms  bound {r['bound_ms']:7.3f} ms "
+            f"({r['bound_ms'] / r['ms']:.1%} of the kernel's time)  exact")
     return res
 
 
@@ -976,7 +1112,10 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[path][key],
          "max_abs_err": res[name]["max_abs_err"], "ms": res[name]["ms"],
-         "plain_ms": res[name]["plain_ms"]}
+         "plain_ms": res[name]["plain_ms"],
+         "bound_ms": res[name]["bound_ms"], "bound_by": "bytes",
+         # no one PyTorch call computes any of the five (PERF.md)
+         "library_ms": None, "shape": res[name]["shape"]}
         for name, key, src, tpu, path in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,9 +26,9 @@ from ..constants import keys_from_u64, keys_to_u64
 
 MAP_COUNT = 128  # on-disk partition count, pinned by .kreeq/.index files
 
-# device bytes a merge of m rows allocates: the merged buffer (8 B key +
-# 72 B counters) and the output (80 B)
-_MERGE_BYTES_PER_ROW = 160
+# device bytes a merge of m rows allocates: the output (80 B; the
+# kernel's per-tile scratch is under a byte a row)
+_MERGE_BYTES_PER_ROW = 81
 
 
 def _check_fits(rows: int, device: torch.device) -> None:

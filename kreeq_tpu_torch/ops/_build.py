@@ -34,7 +34,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     "kq_count_runs": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "kq_merge_sorted": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
-                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                        _P, _P, _P, _P, _P, _P, _P],
     "kq_probe_qv": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P],
     "kq_probe_select": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
                         _P],
@@ -121,8 +121,9 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.kq_tile.argtypes = []
-        lib.kq_tile.restype = ctypes.c_int
+        for name in ("kq_count_tile", "kq_merge_tile"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         lib.kq_error_string.argtypes = [ctypes.c_int]
         lib.kq_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,8 +1,9 @@
 // Shared device code of the run kernels (count_runs.cu, merge_sorted.cu)
 // and the probes (probe_qv.cu, probe_select.cu, probe_sorted.cu): the key
 // and counter conventions, binary search, the probes' counter selection,
-// and the three-pass "run head" scan that gives each run of equal keys
-// its output slot.
+// a block-wide scan, the one-block scan of per-tile counts that gives
+// each tile its first output row, the asynchronous shared-memory copy
+// and the SENTINEL fill of an output's tail.
 //
 // Conventions (kreeq_tpu_torch/constants.py): a key is int64 holding
 // u64 ^ 2^63, so signed order is the packed k-mer order and the
@@ -21,9 +22,8 @@ namespace {
 
 constexpr int64_t SENT = INT64_MAX;
 constexpr int64_t LARGEST = 0xFFFFFFFFll;
+constexpr unsigned FULL = 0xffffffffu;
 
-// Records per block of the run kernels: one record per thread.
-constexpr int TILE = 256;
 constexpr int SCAN_THREADS = 1024;
 
 inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
@@ -46,101 +46,88 @@ __device__ __forceinline__ int64_t selected(const int64_t* fw,
   return sel <= 4 ? fw[4 * row + sel - 1] : bw[4 * row + sel - 5];
 }
 
-__device__ __forceinline__ int64_t upper_bound(const int64_t* a, int64_t n,
-                                               int64_t key) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    int64_t mid = lo + ((hi - lo) >> 1);
-    if (a[mid] <= key) lo = mid + 1; else hi = mid;
+__device__ __forceinline__ int64_t add_sat(int64_t a, int64_t b) {
+  int64_t s = a + b;
+  return s < LARGEST ? s : LARGEST;
+}
+
+// Exclusive scan of one value per thread over a block of NT threads
+// (a multiple of 32); *total gets the block's sum.  Every thread must
+// call it; `tmp` is NT / 32 entries of shared memory.
+template <int NT, typename T>
+__device__ __forceinline__ T block_exclusive_scan(T v, T* total, T* tmp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    T y = __shfl_up_sync(FULL, x, off);
+    if (lane >= off) x += y;
   }
-  return lo;
+  if (lane == 31) tmp[warp] = x;
+  __syncthreads();
+  T before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) {
+    T s = tmp[w];
+    if (w < warp) before += s;
+    all += s;
+  }
+  __syncthreads();  // tmp may be reused
+  *total = all;
+  return before + x - v;
 }
 
-// A run head is the first row of a run of equal non-SENTINEL keys.
-__device__ __forceinline__ bool is_head(const int64_t* keys, int64_t i) {
-  int64_t key = keys[i];
-  return key != SENT && (i == 0 || keys[i - 1] != key);
-}
-
-// Pass 1: the number of run heads in each TILE-row block.
-__global__ void head_counts(const int64_t* __restrict__ keys, int64_t n,
-                            int64_t* __restrict__ block_counts) {
-  int64_t i = (int64_t)blockIdx.x * TILE + threadIdx.x;
-  int c = __syncthreads_count(i < n && is_head(keys, i));
-  if (threadIdx.x == 0) block_counts[blockIdx.x] = c;
-}
-
-// Pass 2: exclusive scan of the block counts, in place, by one block
-// that walks them SCAN_THREADS at a time; the grand total (the number of
-// output rows) goes to *total.
+// Exclusive scan of per-tile counts, in place, by one block that walks
+// them SCAN_THREADS at a time; the grand total (the number of output
+// rows) goes to *total.
 __global__ void scan_blocks(int64_t* __restrict__ counts, int64_t nblocks,
                             int64_t* __restrict__ total) {
-  __shared__ int64_t warp_sums[SCAN_THREADS / 32];
-  __shared__ int64_t carry;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
+  __shared__ int64_t tmp[SCAN_THREADS / 32];
+  int64_t carry = 0;
   for (int64_t base = 0; base < nblocks; base += SCAN_THREADS) {
     int64_t i = base + threadIdx.x;
-    int64_t v = i < nblocks ? counts[i] : 0;
-    int64_t x = v;
-    for (int off = 1; off < 32; off <<= 1) {
-      int64_t y = __shfl_up_sync(0xffffffffu, x, off);
-      if (lane >= off) x += y;
-    }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      int64_t w = warp_sums[lane];
-      for (int off = 1; off < 32; off <<= 1) {
-        int64_t y = __shfl_up_sync(0xffffffffu, w, off);
-        if (lane >= off) w += y;
-      }
-      warp_sums[lane] = w;
-    }
-    __syncthreads();
-    int64_t incl = carry + x + (warp > 0 ? warp_sums[warp - 1] : 0);
-    if (i < nblocks) counts[i] = incl - v;
-    __syncthreads();  // every thread has read carry
-    if (threadIdx.x == SCAN_THREADS - 1) carry = incl;
-    __syncthreads();
+    int64_t v = i < nblocks ? counts[i] : 0, sum;
+    int64_t before = block_exclusive_scan<SCAN_THREADS>(v, &sum, tmp);
+    if (i < nblocks) counts[i] = carry + before;
+    carry += sum;
   }
   if (threadIdx.x == 0) *total = carry;
 }
 
-// Pass 3 helper: the number of run heads before row i (all of the
-// grid's), given this block's exclusive offset.  Every thread of the
-// block must call it.
-__device__ __forceinline__ int64_t heads_before(bool flag,
-                                                int64_t block_offset) {
-  __shared__ int warp_heads[TILE / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned m = __ballot_sync(0xffffffffu, flag);
-  if (lane == 0) warp_heads[warp] = __popc(m);
-  __syncthreads();
-  int before = __popc(m & ((1u << lane) - 1u));
-  for (int w = 0; w < warp; ++w) before += warp_heads[w];
-  return block_offset + before;
+// 8-byte asynchronous copy from device memory to shared memory; the
+// copies of a thread complete at cp_async_wait_all.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
 }
 
 // Rows [*start, n) (all rows when start is null) become SENTINEL rows
-// with zero counters.
+// with zero counters.  Every store is coalesced: keys and cov 8 bytes a
+// thread, fw and bw (16-byte aligned, as allocated by the wrappers) 16.
 __global__ void fill_rows(int64_t* __restrict__ keys,
                           int64_t* __restrict__ cov,
                           int64_t* __restrict__ fw, int64_t* __restrict__ bw,
                           int64_t n, const int64_t* __restrict__ start) {
   int64_t s = start ? *start : 0;
   int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    if (i < s) continue;
+  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int64_t i = s + t; i < n; i += stride) {
     keys[i] = SENT;
     cov[i] = 0;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      fw[4 * i + w] = 0;
-      bw[4 * i + w] = 0;
-    }
+  }
+  longlong2* fw2 = reinterpret_cast<longlong2*>(fw);
+  longlong2* bw2 = reinterpret_cast<longlong2*>(bw);
+  const longlong2 zero = make_longlong2(0, 0);
+  for (int64_t i = 2 * s + t; i < 2 * n; i += stride) {
+    fw2[i] = zero;
+    bw2[i] = zero;
   }
 }
 
@@ -149,21 +136,8 @@ inline void launch_fill(int64_t* keys, int64_t* cov, int64_t* fw,
                         cudaStream_t stream) {
   if (n == 0) return;
   int64_t blocks = ceil_div(n, 256);
-  if (blocks > 65536) blocks = 65536;
+  if (blocks > 132 * 16) blocks = 132 * 16;
   fill_rows<<<(unsigned)blocks, 256, 0, stream>>>(keys, cov, fw, bw, n, start);
-}
-
-// Passes 1 and 2 over keys[0, n): block_offsets[b] = run heads before
-// block b, *total = all run heads.  block_offsets holds
-// ceil(n / TILE) entries.
-inline void launch_head_scan(const int64_t* keys, int64_t n,
-                             int64_t* block_offsets, int64_t* total,
-                             cudaStream_t stream) {
-  int64_t nblocks = ceil_div(n, TILE);
-  if (nblocks > 0)
-    head_counts<<<(unsigned)nblocks, TILE, 0, stream>>>(keys, n,
-                                                        block_offsets);
-  scan_blocks<<<1, SCAN_THREADS, 0, stream>>>(block_offsets, nblocks, total);
 }
 
 }  // namespace

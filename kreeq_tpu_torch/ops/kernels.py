@@ -95,8 +95,8 @@ def count_runs_cuda(skeys, sedges):
     ofw = torch.empty((p, 4), dtype=torch.int64, device=dev)
     obw = torch.empty((p, 4), dtype=torch.int64, device=dev)
     n = torch.empty((), dtype=torch.int64, device=dev)
-    scratch = torch.empty(max(-(-p // lib.kq_tile()), 1), dtype=torch.int64,
-                          device=dev)
+    scratch = torch.empty(max(-(-p // lib.kq_count_tile()), 1),
+                          dtype=torch.int64, device=dev)
     _launch("count_runs", lib.kq_count_runs, skeys.data_ptr(),
             sedges.data_ptr(), p, *_ptrs(okeys, ocov, ofw, obw, n, scratch))
     LAUNCHES["count"] += 1
@@ -123,17 +123,16 @@ def merge_sorted_cuda(keys_a, cov_a, fw_a, bw_a, keys_b, cov_b, fw_b, bw_b):
     nb = _check_table("merge_sorted b", *b)
     m = na + nb
     dev = keys_a.device
-    mkeys = torch.empty(m, dtype=torch.int64, device=dev)
-    mvals = torch.empty((m, 9), dtype=torch.int64, device=dev)
-    scratch = torch.empty(max(-(-m // lib.kq_tile()), 1), dtype=torch.int64,
-                          device=dev)
+    # the tiles' starts in A, then their head counts
+    scratch = torch.empty(2 * -(-m // lib.kq_merge_tile()) + 1,
+                          dtype=torch.int64, device=dev)
     okeys = torch.empty(m, dtype=torch.int64, device=dev)
     ocov = torch.empty(m, dtype=torch.int64, device=dev)
     ofw = torch.empty((m, 4), dtype=torch.int64, device=dev)
     obw = torch.empty((m, 4), dtype=torch.int64, device=dev)
     n = torch.empty((), dtype=torch.int64, device=dev)
     _launch("merge_sorted", lib.kq_merge_sorted, *_ptrs(*a), na, *_ptrs(*b),
-            nb, *_ptrs(mkeys, mvals, scratch, okeys, ocov, ofw, obw, n))
+            nb, *_ptrs(scratch, okeys, ocov, ofw, obw, n))
     LAUNCHES["merge"] += 1
     return okeys, ocov, ofw, obw, n
 

@@ -1,8 +1,11 @@
 """PyTorch port, CUDA kernels against their plain versions on the card,
 on edge cases: empty input, all-SENTINEL input, one key repeated 10^6
-times, saturation, k = 32, SENTINEL queries and the per-position
-sentinels of the variants scan; and the subgraph searches' neighbour
-scan (plain torch ops) on the card against the CPU.  Needs a CUDA device
+times, runs of every length up to three count tiles at every offset
+across a tile seam, equal merge pairs on every merge tile seam, A == B,
+1 row against 10^6, saturation, k = 32, SENTINEL queries and the
+per-position sentinels of the variants scan; and the subgraph searches'
+neighbour scan (plain torch ops) on the card against the CPU.  Needs a
+CUDA device
 (the `gpu` marker); run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m gpu
@@ -60,6 +63,68 @@ def test_count_one_key_repeated(cuda):
     edges = torch.from_numpy(rng.integers(0, 256, p + 5).astype(
         np.uint8)).to(cuda)
     _count_both(keys, edges)
+
+
+def _runs(lengths, rng, device, tail=0):
+    """Sorted records: one run of each length in `lengths` (a new key
+    each), then `tail` SENTINEL records; random edge bytes."""
+    from kreeq_tpu_torch.constants import SENTINEL
+
+    lengths = np.asarray(lengths, np.int64)
+    keys = np.repeat(np.arange(lengths.shape[0], dtype=np.int64) * 3 - 5,
+                     lengths)
+    keys = np.concatenate([keys, np.full(tail, SENTINEL, np.int64)])
+    edges = rng.integers(0, 256, keys.shape[0]).astype(np.uint8)
+    return torch.from_numpy(keys).to(device), torch.from_numpy(edges).to(
+        device)
+
+
+def _count_tile():
+    from kreeq_tpu_torch.ops._build import library
+
+    return library().kq_count_tile()
+
+
+def test_count_every_run_length(cuda):
+    """One run of every length from 1 to 3 tiles, back to back."""
+    rng = np.random.default_rng(3)
+    tile = _count_tile()
+    _count_both(*_runs(np.arange(1, 3 * tile + 1), rng, cuda, tail=77))
+
+
+@pytest.mark.parametrize("length", [1, 2, 3, 31, 32, 33, 255, 256, 257,
+                                    1023, 1024, 1025, 2047, 2048, 2049,
+                                    3071, 3072])
+def test_count_run_at_every_seam_offset(cuda, length):
+    """A run of `length` records, then single records to a period of
+    1 mod the tile, `tile` times over: the run starts at every offset
+    from a tile seam once, so it crosses a seam at every place."""
+    rng = np.random.default_rng(length)
+    tile = _count_tile()
+    period = length + 1
+    period += (1 - period) % tile
+    one = [length] + [1] * (period - length)
+    _count_both(*_runs(one * tile, rng, cuda))
+
+
+def test_count_run_ends_on_tile_boundary(cuda):
+    rng = np.random.default_rng(4)
+    tile = _count_tile()
+    # runs that end exactly at the first, second and third seams, the
+    # last followed by the SENTINEL tail or by the input's end
+    for tail in (0, 5):
+        _count_both(*_runs([tile - 3, 3, 2 * tile - 1, 1], rng, cuda,
+                           tail=tail))
+        _count_both(*_runs([tile, tile, tile], rng, cuda, tail=tail))
+
+
+@pytest.mark.parametrize("p", [1, 17, 1023, 1025, 5 * 1024 + 17])
+def test_count_ragged_input(cuda, p):
+    """P not a multiple of the tile; random runs, some SENTINELs."""
+    rng = np.random.default_rng(p)
+    lengths = rng.integers(1, 40, p)
+    lengths = lengths[np.cumsum(lengths) <= p - p // 10]
+    _count_both(*_runs(lengths, rng, cuda, tail=p - int(lengths.sum())))
 
 
 @pytest.mark.parametrize("k,nbases", [(21, 4), (32, 4), (32, 2)])
@@ -133,6 +198,109 @@ def test_merge_empty_and_all_sentinel(cuda):
         _merge_both(other, a)
     _merge_both(sentinel_table(0), sentinel_table(0))
     _merge_both(sentinel_table(5), sentinel_table(3))
+
+
+def _merge_tile():
+    from kreeq_tpu_torch.ops._build import library
+
+    return library().kq_merge_tile()
+
+
+def _with_counters(rng, keys_a, keys_b, device, top=None, pad=0):
+    """Tables of the given sorted unique keys, random counters (or `top`
+    in every counter), `pad` SENTINEL rows after each."""
+    from kreeq_tpu_torch.constants import SENTINEL
+
+    out = []
+    for keys in (keys_a, keys_b):
+        keys = np.asarray(keys, np.int64)
+        t = keys.shape[0]
+        if top is None:
+            cov = rng.integers(0, 1 << 32, t, dtype=np.int64)
+            fw = rng.integers(0, 1 << 32, (t, 4), dtype=np.int64)
+            bw = rng.integers(0, 1 << 32, (t, 4), dtype=np.int64)
+        else:
+            cov = np.full(t, top, np.int64)
+            fw = np.full((t, 4), top, np.int64)
+            bw = np.full((t, 4), top, np.int64)
+        keys = np.concatenate([keys, np.full(pad, SENTINEL, np.int64)])
+        cov = np.concatenate([cov, np.zeros(pad, np.int64)])
+        fw = np.concatenate([fw, np.zeros((pad, 4), np.int64)])
+        bw = np.concatenate([bw, np.zeros((pad, 4), np.int64)])
+        out.append(tuple(torch.from_numpy(x).to(device)
+                         for x in (keys, cov, fw, bw)))
+    return out
+
+
+@pytest.mark.parametrize("top", [None, 0xFFFFFFF0])
+def test_merge_a_equals_b(cuda, top):
+    """Every row is an equal pair, saturating or not."""
+    rng = np.random.default_rng(5)
+    keys = np.unique(rng.integers(-(1 << 63), 1 << 62, 300_001,
+                                  dtype=np.int64))
+    a, b = _with_counters(rng, keys, keys, cuda, top=top, pad=11)
+    _merge_both(a, b)
+    _merge_both(a, a)
+
+
+def test_merge_equal_pair_on_every_tile_seam(cuda):
+    """Keys placed so that the merged row before every seam of the
+    kernel's tiles is an A row whose equal B row comes right after the
+    seam, between random single and paired rows."""
+    rng = np.random.default_rng(6)
+    tile = _merge_tile()
+    ka, kb = [], []
+    pos, key, seams = 0, -(1 << 62), 0
+    while pos < 40 * tile + 7:
+        key += int(rng.integers(1, 1000))
+        at = pos % tile
+        pair = at == tile - 1 or (at != tile - 2 and rng.random() < 0.3)
+        seams += at == tile - 1
+        if pair:
+            ka.append(key)
+            kb.append(key)
+            pos += 2
+        elif rng.random() < 0.5:
+            ka.append(key)
+            pos += 1
+        else:
+            kb.append(key)
+            pos += 1
+    assert seams == 40
+    for top, pad in ((None, 0), (0xFFFFFFF0, 3)):
+        a, b = _with_counters(rng, ka, kb, cuda, top=top, pad=pad)
+        _merge_both(a, b)
+
+
+@pytest.mark.parametrize("inside", [True, False])
+def test_merge_one_row_against_a_million(cuda, inside):
+    """na = 1 against nb = 10^6 and the reverse; the single key equal to
+    one of the others, or not."""
+    rng = np.random.default_rng(7)
+    many = np.unique(rng.integers(-(1 << 63), 1 << 62, 1_000_000,
+                                  dtype=np.int64))
+    one = many[len(many) // 2] + (0 if inside else 1)
+    assert (one in many) == inside
+    a, b = _with_counters(rng, [one], many, cuda)
+    _merge_both(a, b)
+    _merge_both(b, a)
+
+
+@pytest.mark.parametrize("na,nb", [(5 * 2048 + 17, 3 * 2048 + 1),
+                                   (2047, 1), (2048, 2048), (1, 0),
+                                   (0, 12345)])
+def test_merge_ragged_sizes_both_tailed(cuda, na, nb):
+    """na + nb not a multiple of the tile, both inputs SENTINEL-tailed
+    (and untailed); half of B's keys shared with A."""
+    rng = np.random.default_rng(na + 3 * nb)
+    ka = np.unique(rng.integers(-(1 << 63), 1 << 62, na, dtype=np.int64))
+    kb = np.unique(np.concatenate([
+        ka[::2][:nb // 2],
+        rng.integers(-(1 << 63), 1 << 62, nb - nb // 2, dtype=np.int64)]))
+    for pad in (0, 9):
+        a, b = _with_counters(rng, ka, kb, cuda, pad=pad)
+        _merge_both(a, b)
+        _merge_both(b, a)
 
 
 @pytest.mark.parametrize("k,cutoff", [(21, 0), (32, 3)])

@@ -59,6 +59,33 @@ def test_count_sorted_matches_jax(k, nbases):
         assert np.array_equal(np.asarray(x).astype(np.int64), y.numpy()), name
 
 
+@pytest.mark.parametrize("run", [2500, 3 * 1024])
+def test_count_sorted_long_run_matches_jax(run):
+    """A run longer than two of the count kernel's 1024-record tiles,
+    between shorter ones, with invalid records; same records to both."""
+    import jax.numpy as jnp
+
+    from kreeq_tpu.ops.kmers import count_sorted as jax_count
+    from kreeq_tpu_torch.constants import keys_from_u64
+    from kreeq_tpu_torch.ops.kernels import count_sorted_cuda
+
+    rng = np.random.default_rng(run)
+    keys = np.concatenate([rng.integers(0, 1 << 42, 700, dtype=np.uint64),
+                           np.full(run, 1 << 41, np.uint64),
+                           rng.integers(0, 40, 900).astype(np.uint64)])
+    keys = keys[rng.permutation(keys.shape[0])]
+    edges = rng.integers(0, 256, keys.shape[0]).astype(np.uint8)
+    valid = rng.random(keys.shape[0]) > 0.05
+    ref = jax_count(jnp.asarray(keys), jnp.asarray(edges), jnp.asarray(valid))
+    got = count_sorted_cuda(torch.from_numpy(keys_from_u64(keys)),
+                            torch.from_numpy(edges), torch.from_numpy(valid))
+    assert int(ref[4]) == int(got[4])
+    assert int(got[1].max()) > 2 * 1024
+    assert np.array_equal(np.asarray(ref[0]), _port_u64(got[0]))
+    for name, x, y in zip(("cov", "fw", "bw"), ref[1:4], got[1:4]):
+        assert np.array_equal(np.asarray(x).astype(np.int64), y.numpy()), name
+
+
 def test_count_sorted_matches_pallas_interpret(monkeypatch):
     """One tiny case against the Pallas count kernel in interpret mode."""
     import jax.numpy as jnp

@@ -59,7 +59,18 @@ def _cases():
     b = (kb, np.full(t, 0xFFFFFFF0, np.uint32),
          np.full((t, 4), 0xFFFFFFFE, np.uint32),
          rng.integers(0, 1 << 31, (t, 4), dtype=np.uint64).astype(np.uint32))
-    return {
+
+    def _row(table, i):
+        """Row i of table, or a key none of its rows has."""
+        if i is None:
+            key = np.setdiff1d(np.arange(1, 1 << 20, dtype=np.uint64),
+                               table[0])[:1]
+            return (key, np.array([7], np.uint32),
+                    np.full((1, 4), 3, np.uint32),
+                    np.full((1, 4), 5, np.uint32))
+        return tuple(x[i:i + 1] for x in table)
+
+    cases = {
         "overlap_saturating": (_pad(a, 1024), _pad(b, 1024)),
         "dense_duplicates": (_pad(_table(rng, 400, kbits=10), 1024),
                              _pad(_table(rng, 400, kbits=10), 1024)),
@@ -72,11 +83,25 @@ def _cases():
         "top_bit_keys": (_pad(_table(rng, 500, kbits=64), 1024),
                          _pad(_table(rng, 500, kbits=64), 1024)),
     }
+    big = _table(rng, 5000)
+    cases.update({
+        # every row an equal pair: summed, and saturating
+        "a_equals_b": (_pad(a, 1024), _pad(a, 1024)),
+        "a_equals_b_saturating": (_pad(b, 1024), _pad(b, 1024)),
+        # one row against many, its key among them or not
+        "one_against_many": (_pad(_row(big, 1234), 2),
+                             _pad(big, len(big[0]) + 3)),
+        "many_against_one": (_pad(big, len(big[0]) + 3),
+                             _pad(_row(big, None), 1)),
+    })
+    return cases
 
 
 @pytest.mark.parametrize("case", ["overlap_saturating", "dense_duplicates",
                                   "a_all_sentinel", "b_empty_untailed",
-                                  "top_bit_keys"])
+                                  "top_bit_keys", "a_equals_b",
+                                  "a_equals_b_saturating", "one_against_many",
+                                  "many_against_one"])
 def test_merge_sorted_matches_jax(case):
     import jax.numpy as jnp
 
