@@ -13,12 +13,15 @@ non-zero and never prints the final line):
      version and timed with CUDA events (the sum of the kernel's times
      and of its bound); one 8M-base read chunk, as it is, with a
      poly-A pile of 10^6 records and as sorted random keys (every tile
-     full of heads); the build's largest merge; one full
-     4,194,304-position validate window for each probe; one full
-     variants window of per-position sentinel keys for the generic
-     probe; exact equality, median times with CUDA events, each beside
-     its bound (the bytes these inputs need at 3.35 TB/s: a SENTINEL
-     row's key only);
+     full of heads); the build's largest merge; the table's bucket
+     directory (bits, build time, mean and largest bucket); one full
+     4,194,304-position validate window for each validate probe, also
+     at 20, 21 and 22 bits, and B3 on a table with a 10^6-row poly-A
+     pile; one full variants window of per-position sentinel keys for
+     the generic probe; exact equality, median times with CUDA events,
+     each beside its bound (the bytes these inputs need at 3.35 TB/s: a
+     SENTINEL row's key only) and, for the validate probes, the sector
+     floor (the sectors their reads touch, per array, counted once);
   4. end to end: `kreeq validate -r reads.fq -f asm.fa -k 21` through
      the port's CLI on the card, on a generated yeast-scale assembly
      (planted SNV/INS/DEL, an N run, IUPAC bases, short contigs) and
@@ -60,8 +63,8 @@ non-zero and never prints the final line):
      stdout's segment and edge counts, at least 90% of the cut's k-mers
      must be blue seed nodes, and the generic probe must have launched.
 The second-to-last line is a JSON object with each kernel's launches,
-error, times, bound and shape; the last is {"ok": true, "device": {...}}.  Needs a
-CUDA device; imports no JAX.
+error, times, bound and shape; the last is {"ok": true, "device":
+{...}}.  Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -387,11 +390,43 @@ def touched_rows(tkeys, qkeys) -> int:
     return int(torch.unique(row[found]).shape[0])
 
 
+def sector_floor_ms(tkeys, shift: int, qkeys, qctx, streamed: int) -> float:
+    """A validate probe's floor under random access: the 32-byte sectors
+    of each array that the queries touch at the least, each counted
+    once (the directory's two entries, the key at the row the search
+    ends on, a found row's cov and the fw or bw row of each selected
+    counter, 32 B a row), plus the `streamed` bytes of queries and
+    outputs, at the H100's 3.35 TB/s."""
+    import torch
+
+    from kreeq_tpu_torch.constants import SENTINEL
+    from kreeq_tpu_torch.ops.index import bucket_of
+
+    keep = qkeys != SENTINEL
+    q, ctx = qkeys[keep], qctx[keep].to(torch.int64)
+    row = torch.searchsorted(tkeys, q).clamp_(max=max(tkeys.shape[0] - 1,
+                                                      0))
+    found = tkeys[row] == q
+    b = bucket_of(q, shift)
+    frow, fctx = row[found], ctx[found]
+    # a selector's sector: its row of fw (1-4) or of bw (5-8)
+    counters = [2 * frow[sel != 0] + (sel[sel != 0] > 4)
+                for sel in (fctx & 15, fctx >> 4)]
+
+    def distinct(x):
+        return int(torch.unique(x).shape[0])
+
+    sectors = (distinct(torch.cat([b, b + 1]) >> 2) + distinct(row >> 2)
+               + distinct(frow >> 2) + distinct(torch.cat(counters)))
+    return bound_ms(32 * sectors + streamed)
+
+
 def phase_kernels(fq: str, fa: str, device):
     """Kernel against plain version at the main path's shapes."""
     import torch
 
     from kreeq_tpu_torch.config import UserInput
+    from kreeq_tpu_torch.constants import KEY_BIAS
     from kreeq_tpu_torch.core.dbg import DBG
     from kreeq_tpu_torch.core.table import KmerTable, TreeMerger
     from kreeq_tpu_torch.core.variants import _extract_sentinel
@@ -400,6 +435,7 @@ def phase_kernels(fq: str, fa: str, device):
     from kreeq_tpu_torch.ops import kernels
     from kreeq_tpu_torch.ops import kmers as Km
     from kreeq_tpu_torch.ops import validate as V
+    from kreeq_tpu_torch.ops.index import bucket_index
 
     class CheckingMerger(TreeMerger):
         """Holds every merge of the build exactly against the plain
@@ -539,16 +575,29 @@ def phase_kernels(fq: str, fa: str, device):
                                             kcount)).to(device)
     qkeys, qctx = V._extract_ctx_qv(wbuf, K)
     tab = (table.keys, table.cov, table.fw, table.bw)
+    # the validate probes' bucket directory, as the CLI builds it: once
+    # per table, on the table (KmerTable.bucket_index)
+    index = table.bucket_index()
+    starts, shift = index
+    bits = (starts.shape[0] - 1).bit_length() - 1
+    sizes = starts[1:] - starts[:-1]
+    log(f"    bucket directory: {bits} bits, {starts.shape[0]} int64 "
+        f"entries; build {cuda_ms(lambda: bucket_index(table.keys, K)):.3f}"
+        f" ms; rows a bucket: mean {len(table) / sizes.shape[0]:.2f}, "
+        f"largest {int(sizes.max())}")
+    window = (qkeys[1:1 + WINDOW], qctx[1:1 + WINDOW])
     args = (*tab, qkeys, qctx, 1, 1 + WINDOW, 0)
     # queries (key, ctx); per found row its key, cov and the two selected
     # counters; two int64 sums out
     res["probe_qv"] = dict(
-        shape=f"q={WINDOW} t={len(table)}",
+        shape=f"q={WINDOW} t={len(table)} bits={bits}",
         bound_ms=bound_ms(9 * WINDOW + 32 * touched_rows(
             table.keys, qkeys[1:1 + WINDOW]) + 16),
-        max_abs_err=compare("probe_qv", (kernels.probe_qv_cuda(*args),),
-                            (V.qv_sums(*args),)),
-        ms=cuda_ms(lambda: kernels.probe_qv_cuda(*args)),
+        sector_ms=sector_floor_ms(table.keys, shift, *window,
+                                  9 * WINDOW + 16),
+        max_abs_err=compare("probe_qv", (kernels.probe_qv_cuda(
+            *args, index),), (V.qv_sums(*args),)),
+        ms=cuda_ms(lambda: kernels.probe_qv_cuda(*args, index)),
         plain_ms=cuda_ms(lambda: V.qv_sums(*args)))
     # the track path probes every position of the window buffer: the
     # window plus one position of context on each side
@@ -558,14 +607,55 @@ def phase_kernels(fq: str, fa: str, device):
     # queries; per found row key, cov and two counters; found, cov,
     # right, left out
     res["probe_select"] = dict(
-        shape=f"q={q} t={len(table)}",
+        shape=f"q={q} t={len(table)} bits={bits}",
         bound_ms=bound_ms(9 * q + 32 * touched_rows(table.keys, skeys)
                           + 25 * q),
+        sector_ms=sector_floor_ms(table.keys, shift, skeys, sctx, 34 * q),
         max_abs_err=compare("probe_select",
-                            kernels.probe_select_cuda(*sargs),
+                            kernels.probe_select_cuda(*sargs, index),
                             V.probe_select(*sargs)),
-        ms=cuda_ms(lambda: kernels.probe_select_cuda(*sargs)),
+        ms=cuda_ms(lambda: kernels.probe_select_cuda(*sargs, index)),
         plain_ms=cuda_ms(lambda: V.probe_select(*sargs)))
+    # the directory's size: each probe exact and timed at 20, 21 and 22
+    # bits, in turns
+    qb, sb = res["probe_qv"]["bound_ms"], res["probe_select"]["bound_ms"]
+    for nbits in (20, 21, 22, 21, 20):
+        idx = bucket_index(table.keys, K, nbits)
+        compare(f"probe_qv ({nbits} bits)", (kernels.probe_qv_cuda(
+            *args, idx),), (V.qv_sums(*args),))
+        compare(f"probe_select ({nbits} bits)",
+                kernels.probe_select_cuda(*sargs, idx),
+                V.probe_select(*sargs))
+        qms = cuda_ms(lambda: kernels.probe_qv_cuda(*args, idx))
+        sms = cuda_ms(lambda: kernels.probe_select_cuda(*sargs, idx))
+        qfloor = sector_floor_ms(table.keys, idx[1], *window,
+                                 9 * WINDOW + 16)
+        sfloor = sector_floor_ms(table.keys, idx[1], skeys, sctx, 34 * q)
+        log(f"    {nbits} bits: probe_qv {qms:.3f} ms ({qb / qms:.1%} of its "
+            f"bound, sector floor {qfloor:.3f} ms)  probe_select {sms:.3f} "
+            f"ms ({sb / sms:.1%}, sector floor {sfloor:.3f} ms)  exact")
+        del idx
+    # a poly-A pile: the table's first PILE rows become the keys just
+    # above AA..A, all in bucket 0, and one query in 8 lands in that
+    # bucket (half of them in the pile)
+    pkeys = table.keys.clone()
+    pkeys[:PILE] = KEY_BIAS + torch.arange(1, PILE + 1, device=device)
+    if not bool(pkeys[PILE - 1] < pkeys[PILE]):
+        raise AssertionError("the pile does not sort below the table")
+    pidx = bucket_index(pkeys, K)
+    gen = torch.Generator(device=device).manual_seed(11)
+    pq = qkeys.clone()
+    pq[1::8] = KEY_BIAS + torch.randint(1, 2 * PILE, pq[1::8].shape,
+                                        device=device, generator=gen)
+    pargs = (pkeys, *tab[1:], pq, qctx, 1, 1 + WINDOW, 0)
+    compare("probe_qv (pile)", (kernels.probe_qv_cuda(*pargs, pidx),),
+            (V.qv_sums(*pargs),))
+    log(f"    probe_qv with a poly-A pile of {PILE} rows in one bucket "
+        f"(largest {int((pidx[0][1:] - pidx[0][:-1]).max())}), one query "
+        f"in 8 in that bucket: kernel "
+        f"{cuda_ms(lambda: kernels.probe_qv_cuda(*pargs, pidx)):.3f} ms  "
+        f"plain {cuda_ms(lambda: V.qv_sums(*pargs)):.3f} ms  exact")
+    del pkeys, pidx, pq, pargs
     # the variants scan probes one window of positions, invalid windows
     # carrying their per-position sentinels
     vbuf = torch.from_numpy(seg.codes[:WINDOW + K - 1]).to(device)
@@ -584,9 +674,12 @@ def phase_kernels(fq: str, fa: str, device):
         plain_ms=cuda_ms(lambda: Km.probe_sorted(*vargs)))
     for name, *_rest in KERNELS:
         r = res[name]
-        log(f"    {name:13s} {r['shape']:28s} kernel {r['ms']:9.3f} ms  "
+        floor = (f"; sector floor {r['sector_ms']:.3f} ms"
+                 if "sector_ms" in r else "")
+        log(f"    {name:13s} {r['shape']:36s} kernel {r['ms']:9.3f} ms  "
             f"plain {r['plain_ms']:9.3f} ms  bound {r['bound_ms']:7.3f} ms "
-            f"({r['bound_ms'] / r['ms']:.1%} of the kernel's time)  exact")
+            f"({r['bound_ms'] / r['ms']:.1%} of the kernel's time{floor})  "
+            f"exact")
     return res
 
 

@@ -149,6 +149,10 @@ class DBG:
         cutoff = self.ui.cov_cutoff
         device = self.table.device
         tab = (self.table.keys, self.table.cov, self.table.fw, self.table.bw)
+        # the CUDA probes' bucket directory; the CPU's plain probes
+        # need none
+        index = (self.table.bucket_index() if device.type == "cuda"
+                 else None)
         # int64 totals on the device: genome-scale counts pass 2^31
         acc = torch.zeros(2, dtype=torch.int64, device=device)
         self.tracks = []
@@ -167,11 +171,12 @@ class DBG:
                 buf = torch.from_numpy(buf).to(device)
                 hi = lead + (b - a)
                 if not need_tracks:
-                    acc += validate_qv_sums(*tab, buf, k, cutoff, lead, hi)
+                    acc += validate_qv_sums(*tab, buf, k, cutoff, lead, hi,
+                                            index)
                     continue
                 (_valid, missing, edge_missing, cov, isfw, right,
                  left) = (x[lead:hi] for x in validate_positions(
-                     *tab, buf, k, cutoff))
+                     *tab, buf, k, cutoff, index))
                 acc += torch.stack([missing.sum(), edge_missing.sum()])
                 pending.append(_start_readback(track, a, b, cov, isfw,
                                                right, left))

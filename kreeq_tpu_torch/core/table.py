@@ -6,7 +6,8 @@ on one device, in the port's dtypes (constants.py).  The build counts
 read chunks and tree-merges the chunk tables on the device through the
 kernel wrappers of ops/kernels.py.  The lookups of the variants path
 are `probe_device` / `probe` (batched, through probe_sorted_cuda) and
-`lookup` (scalar, on a host copy).
+`lookup` (scalar, on a host copy); the validate probes search through
+the bucket directory that `bucket_index` builds once per table.
 
 Not yet ported: the host-merge spill for tables beyond device memory,
 table windows, build checkpoints and sharded builds.  A merge that
@@ -133,6 +134,9 @@ class KmerTable:
     # host copy for lookup(): keys int64 [n], counters u32; made once
     _host: Optional[Tuple[np.ndarray, ...]] = field(
         default=None, init=False, repr=False, compare=False)
+    # bucket directory of the validate probes: (starts, shift); made once
+    _bucket: Optional[Tuple[torch.Tensor, int]] = field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -221,6 +225,16 @@ class KmerTable:
         found, cov, fw, bw = self.probe_device(qkeys)
         return (found.cpu().numpy(),
                 *(a.cpu().numpy().astype(np.uint32) for a in (cov, fw, bw)))
+
+    def bucket_index(self) -> Tuple[torch.Tensor, int]:
+        """(starts, shift) on the table's device (ops/index.py): the
+        bucket directory that the probe_qv and probe_select kernels
+        search through; built at the first call and kept."""
+        if self._bucket is None:
+            from ..ops.index import bucket_index
+
+            self._bucket = bucket_index(self.keys, self.k)
+        return self._bucket
 
     def lookup(self, key: int):
         """Scalar host lookup of a u64 key (a Python int, the host

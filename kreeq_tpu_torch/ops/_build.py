@@ -35,9 +35,10 @@ _SIGNATURES = {
     "kq_count_runs": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "kq_merge_sorted": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
                         _P, _P, _P, _P, _P, _P, _P],
-    "kq_probe_qv": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P],
-    "kq_probe_select": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
-                        _P],
+    "kq_probe_qv": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P,
+                    _P],
+    "kq_probe_select": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
+                        _P, _P, _P],
     "kq_probe_sorted": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P],
 }
 

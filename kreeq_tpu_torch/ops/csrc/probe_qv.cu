@@ -14,14 +14,20 @@
 // counter (1-4 = fw0-3, 5-8 = bw0-3) is zero; a selector of 0 means no
 // neighbour base, and that side does not count against it.
 //
-// Bound on the H100: latency of dependent loads.  Each position walks a
-// binary search of log2(t) steps (25 at 27M rows) through a table far
-// larger than L2; the top levels of the search stay in L2, the last ones
-// go to device memory.  Design: no query sort (the TPU kernel needed one
-// to stream table tiles): one thread per position searches the table
-// directly, and enough threads are in flight (4M per window) to hide the
-// latency.  Counts reduce per warp with shuffles, then per block in
-// shared memory, then one atomicAdd per counter per block.
+// Bound on the H100: random 32-byte sectors of a table far larger than
+// L2, in 3 dependent round trips a position: the bucket directory's two
+// entries (L2), the bucket's keys, then the row's cov and right counter
+// (the left one only where the right one is zero).  The time follows
+// the random places a position reads, more than its bytes.  Design: one
+// thread per position, no query sort (the TPU kernel needed one to
+// stream table tiles), and the table's bucket directory (ops/index.py,
+// built once per table, 32 MB at 2^22 buckets): it confines the search
+// to about 6 rows, read by runs.cuh::bucket_find in independent 16-byte
+// loads, instead of a global binary search of 25 dependent loads.  cov
+// and the right counter are loaded together, as streaming loads, so
+// that they do not evict the directory from L2.  Counts reduce per warp
+// with shuffles, then per block in shared memory, then one atomicAdd per
+// counter per block.
 
 #include "runs.cuh"
 
@@ -33,8 +39,9 @@ constexpr int PROBE_THREADS = 256;
 __global__ void probe_qv(const int64_t* __restrict__ tkeys,
                          const int64_t* __restrict__ tcov,
                          const int64_t* __restrict__ tfw,
-                         const int64_t* __restrict__ tbw, int64_t t,
-                         const int64_t* __restrict__ qkeys,
+                         const int64_t* __restrict__ tbw,
+                         const int64_t* __restrict__ starts, int64_t nb,
+                         int shift, const int64_t* __restrict__ qkeys,
                          const uint8_t* __restrict__ qctx, int64_t lead,
                          int64_t count, int64_t covmin,
                          unsigned long long* __restrict__ out) {
@@ -45,16 +52,18 @@ __global__ void probe_qv(const int64_t* __restrict__ tkeys,
   if (i < count) {
     int64_t pos = lead + i;
     int64_t key = qkeys[pos];
-    int64_t row = key == SENT ? t : lower_bound(tkeys, t, key);
-    bool ok = row < t && tkeys[row] == key && tcov[row] >= covmin;
-    if (!ok) {
+    int ctx = qctx[pos];
+    int64_t row = bucket_find(tkeys, starts, nb, shift, key);
+    if (row < 0) {
       miss = 1;
     } else {
-      int ctx = qctx[pos];
       int sel_r = ctx & 15, sel_l = ctx >> 4;
-      bool no_right = sel_r != 0 && selected(tfw, tbw, row, sel_r) == 0;
-      bool no_left = sel_l != 0 && selected(tfw, tbw, row, sel_l) == 0;
-      edge = no_right && no_left;
+      int64_t c = __ldcs(tcov + row);
+      int64_t r = sel_r ? selected(tfw, tbw, row, sel_r) : 1;
+      if (c < covmin)
+        miss = 1;
+      else if (sel_r != 0 && r == 0 && sel_l != 0)
+        edge = selected(tfw, tbw, row, sel_l) == 0;
     }
   }
   miss = __reduce_add_sync(0xffffffffu, miss);
@@ -78,11 +87,14 @@ __global__ void probe_qv(const int64_t* __restrict__ tkeys,
 }  // namespace
 }  // namespace kq
 
-// Table: tkeys [t] sorted unique (a SENTINEL tail is allowed), tcov [t],
-// tfw/tbw [t, 4].  Queries: qkeys [q], qctx [q]; positions
-// [lead, lead + count) are classified.  out: int64[2], overwritten.
+// Table: tkeys [t] sorted unique, 16-byte aligned (a SENTINEL tail is
+// allowed), tcov [t], tfw [t, 4], tbw [t, 4]; its bucket directory
+// (ops/index.py): starts [nb + 1] and shift.  Queries: qkeys [q], qctx
+// [q]; positions [lead, lead + count) are classified.  out: int64[2],
+// overwritten.
 extern "C" int kq_probe_qv(const int64_t* tkeys, const int64_t* tcov,
-                           const int64_t* tfw, const int64_t* tbw, int64_t t,
+                           const int64_t* tfw, const int64_t* tbw,
+                           const int64_t* starts, int64_t nb, int64_t shift,
                            const int64_t* qkeys, const uint8_t* qctx,
                            int64_t lead, int64_t count, int64_t covmin,
                            int64_t* out, void* stream) {
@@ -93,7 +105,7 @@ extern "C" int kq_probe_qv(const int64_t* tkeys, const int64_t* tcov,
   int64_t nblocks = ceil_div(count, PROBE_THREADS);
   if (nblocks > 0)
     probe_qv<<<(unsigned)nblocks, PROBE_THREADS, 0, s>>>(
-        tkeys, tcov, tfw, tbw, t, qkeys, qctx, lead, count, covmin,
-        reinterpret_cast<unsigned long long*>(out));
+        tkeys, tcov, tfw, tbw, starts, nb, (int)shift, qkeys, qctx, lead,
+        count, covmin, reinterpret_cast<unsigned long long*>(out));
   return (int)cudaGetLastError();
 }

@@ -14,14 +14,18 @@
 // The classification into missing / edge-missing stays in PyTorch
 // (ops/validate.py _classify_sel).
 //
-// Bound on the H100: latency of dependent loads, as in probe_qv.cu: a
-// binary search of log2(t) steps per position through a table far larger
-// than L2.  Design: the probe_qv search core, one thread per position,
-// no query sort and no restore (the TPU kernel sorted the queries so
-// that table tiles stream, contracted u8/u16 limbs on the MXU and
-// restored query order with a keyed sort; none of that is needed when
-// every thread searches the table itself).  Writes are coalesced: thread
-// i writes element i of each output.
+// Bound on the H100: random 32-byte sectors, in 3 dependent round trips
+// a position, as in probe_qv.cu: the bucket directory (L2), the bucket's
+// keys, then the row's cov and its two selected counters.  Design: the
+// probe_qv search, one thread per position through the table's bucket
+// directory (ops/index.py, runs.cuh::bucket_find), then cov and both
+// selected counters in streaming loads issued together, so that they
+// cost one round trip and do not evict the directory; no query sort and
+// no restore (the TPU kernel sorted the queries so that table tiles
+// stream, contracted u8/u16 limbs on the MXU and restored query order
+// with a keyed sort; none of that is needed when every thread searches
+// the table itself).  Writes are coalesced: thread i writes element i of
+// each output.
 
 #include "runs.cuh"
 
@@ -33,8 +37,9 @@ constexpr int SELECT_THREADS = 256;
 __global__ void probe_select(const int64_t* __restrict__ tkeys,
                              const int64_t* __restrict__ tcov,
                              const int64_t* __restrict__ tfw,
-                             const int64_t* __restrict__ tbw, int64_t t,
-                             const int64_t* __restrict__ qkeys,
+                             const int64_t* __restrict__ tbw,
+                             const int64_t* __restrict__ starts, int64_t nb,
+                             int shift, const int64_t* __restrict__ qkeys,
                              const uint8_t* __restrict__ qctx, int64_t q,
                              uint8_t* __restrict__ found,
                              int64_t* __restrict__ cov,
@@ -43,17 +48,16 @@ __global__ void probe_select(const int64_t* __restrict__ tkeys,
   int64_t i = (int64_t)blockIdx.x * SELECT_THREADS + threadIdx.x;
   if (i >= q) return;
   int64_t key = qkeys[i];
-  int64_t row = key == SENT ? t : lower_bound(tkeys, t, key);
-  bool f = row < t && tkeys[row] == key;
+  int ctx = qctx[i];
+  int64_t row = bucket_find(tkeys, starts, nb, shift, key);
   int64_t c = 0, r = 0, l = 0;
-  if (f) {
-    int ctx = qctx[i];
+  if (row >= 0) {
     int sel_r = ctx & 15, sel_l = ctx >> 4;
-    c = tcov[row];
+    c = __ldcs(tcov + row);
     r = sel_r ? selected(tfw, tbw, row, sel_r) : 0;
     l = sel_l ? selected(tfw, tbw, row, sel_l) : 0;
   }
-  found[i] = f;
+  found[i] = row >= 0;
   cov[i] = c;
   right[i] = r;
   left[i] = l;
@@ -62,12 +66,15 @@ __global__ void probe_select(const int64_t* __restrict__ tkeys,
 }  // namespace
 }  // namespace kq
 
-// Table: tkeys [t] sorted unique (a SENTINEL tail is allowed), tcov [t],
-// tfw/tbw [t, 4].  Queries: qkeys [q], qctx [q].  Outputs [q] each,
-// overwritten: found (0/1 bytes), cov, right, left.
+// Table: tkeys [t] sorted unique, 16-byte aligned (a SENTINEL tail is
+// allowed), tcov [t], tfw [t, 4], tbw [t, 4]; its bucket directory
+// (ops/index.py): starts [nb + 1] and shift.  Queries: qkeys [q], qctx
+// [q].  Outputs [q] each, overwritten: found (0/1 bytes), cov, right,
+// left.
 extern "C" int kq_probe_select(const int64_t* tkeys, const int64_t* tcov,
                                const int64_t* tfw, const int64_t* tbw,
-                               int64_t t, const int64_t* qkeys,
+                               const int64_t* starts, int64_t nb,
+                               int64_t shift, const int64_t* qkeys,
                                const uint8_t* qctx, int64_t q,
                                uint8_t* found, int64_t* cov, int64_t* right,
                                int64_t* left, void* stream) {
@@ -76,6 +83,7 @@ extern "C" int kq_probe_select(const int64_t* tkeys, const int64_t* tcov,
   int64_t nblocks = ceil_div(q, SELECT_THREADS);
   if (nblocks > 0)
     probe_select<<<(unsigned)nblocks, SELECT_THREADS, 0, s>>>(
-        tkeys, tcov, tfw, tbw, t, qkeys, qctx, q, found, cov, right, left);
+        tkeys, tcov, tfw, tbw, starts, nb, (int)shift, qkeys, qctx, q,
+        found, cov, right, left);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // Shared device code of the run kernels (count_runs.cu, merge_sorted.cu)
 // and the probes (probe_qv.cu, probe_select.cu, probe_sorted.cu): the key
-// and counter conventions, binary search, the probes' counter selection,
-// a block-wide scan, the one-block scan of per-tile counts that gives
+// and counter conventions, binary search, the search through a table's
+// bucket directory, the probes' counter selection, a block-wide scan,
+// the one-block scan of per-tile counts that gives
 // each tile its first output row, the asynchronous shared-memory copy
 // and the SENTINEL fill of an output's tail.
 //
@@ -38,12 +39,62 @@ __device__ __forceinline__ int64_t lower_bound(const int64_t* a, int64_t n,
   return lo;
 }
 
+// Keys of a bucket read in one round trip by bucket_find.
+constexpr int BUCKET_SCAN = 8;
+
+// The row of `key` in a sorted table (keys 16-byte aligned) through its
+// bucket directory (kreeq_tpu_torch/ops/index.py): starts [nb + 1], the
+// bucket of a key its top bits, (u64)(key ^ INT64_MIN) >> shift.
+// Returns -1 when the table does not hold the key (a SENTINEL key
+// never matches).  One load pair of the directory (L2-resident), then
+// the bucket's keys in aligned 16-byte loads issued together; a bucket
+// longer than BUCKET_SCAN (a poly-A pile, low complexity) is bisected
+// down to that first, with no bound on the steps.
+__device__ __forceinline__ int64_t bucket_find(
+    const int64_t* __restrict__ keys, const int64_t* __restrict__ starts,
+    int64_t nb, int shift, int64_t key) {
+  uint64_t b = (static_cast<uint64_t>(key) ^ (1ull << 63)) >> shift;
+  if (key == SENT || b >= static_cast<uint64_t>(nb)) return -1;
+  int64_t lo = __ldg(starts + b), hi = __ldg(starts + b + 1);
+  while (hi - lo > BUCKET_SCAN) {
+    int64_t mid = lo + ((hi - lo) >> 1);
+    int64_t v = __ldg(keys + mid);
+    if (v == key) return mid;
+    if (v < key) lo = mid + 1; else hi = mid;
+  }
+  // rows [lo, hi) in pairs from the even row at or below lo: a key of
+  // another bucket, or the SENTINEL filler past hi, never equals `key`,
+  // so a match needs no range test.  Nothing at or past hi is read (hi
+  // may be the table's end).
+  const longlong2* pairs = reinterpret_cast<const longlong2*>(keys);
+  const int64_t p0 = lo >> 1;
+  longlong2 v[BUCKET_SCAN / 2 + 1];
+#pragma unroll
+  for (int j = 0; j < BUCKET_SCAN / 2 + 1; ++j) {
+    int64_t i = 2 * (p0 + j);
+    if (i + 1 < hi)
+      v[j] = __ldg(pairs + p0 + j);
+    else
+      v[j] = make_longlong2(i < hi ? __ldg(keys + i) : SENT, SENT);
+  }
+  int64_t row = -1;
+#pragma unroll
+  for (int j = 0; j < BUCKET_SCAN / 2 + 1; ++j) {
+    int64_t i = 2 * (p0 + j);
+    if (v[j].x == key) row = i;
+    if (v[j].y == key) row = i + 1;
+  }
+  return row;
+}
+
 // The edge counter a probe's ctx selector names: 1-4 = fw0-3, 5-8 =
-// bw0-3 of table row `row` (fw, bw are [t, 4] row-major).
+// bw0-3 of table row `row` (fw, bw are [t, 4] row-major).  A streaming
+// load (evict first): a random row is read once, and must not push the
+// bucket directory out of L2.
 __device__ __forceinline__ int64_t selected(const int64_t* fw,
                                             const int64_t* bw, int64_t row,
                                             int sel) {
-  return sel <= 4 ? fw[4 * row + sel - 1] : bw[4 * row + sel - 5];
+  return __ldcs(sel <= 4 ? fw + 4 * row + sel - 1 : bw + 4 * row + sel - 5);
 }
 
 __device__ __forceinline__ int64_t add_sat(int64_t a, int64_t b) {

@@ -137,18 +137,44 @@ def merge_sorted_cuda(keys_a, cov_a, fw_a, bw_a, keys_b, cov_b, fw_b, bw_b):
     return okeys, ocov, ofw, obw, n
 
 
+def _check_index(name: str, index, tkeys) -> tuple:
+    """(starts, nb, shift) of a table's bucket directory (ops/index.py)
+    for a CUDA probe; raises without one, since a rebuild per call would
+    hide a directory build in every window."""
+    if index is None:
+        raise ValueError(f"{name}: a CUDA probe needs the table's bucket "
+                         "directory (KmerTable.bucket_index, or "
+                         "ops.index.bucket_index of its keys)")
+    starts, shift = index
+    nb = starts.shape[0] - 1
+    _check(name + " starts", starts, torch.int64, (nb + 1,))
+    if starts.device != tkeys.device:
+        raise ValueError(f"{name}: directory on {starts.device}, table on "
+                         f"{tkeys.device}")
+    bits = nb.bit_length() - 1
+    if nb < 1 or nb & (nb - 1) or not 0 <= shift <= 64 - bits:
+        raise ValueError(f"{name}: not a bucket directory: {nb} buckets, "
+                         f"shift {shift}")
+    if tkeys.data_ptr() % 16:
+        raise ValueError(f"{name}: table keys must be 16-byte aligned")
+    return starts, nb, int(shift)
+
+
 def probe_qv_cuda(tkeys, tcov, tfw, tbw, qkeys, qctx, lead: int, hi: int,
-                  cutoff: int):
+                  cutoff: int, index=None):
     """(#missing, #edge-missing) over query positions lead <= i < hi as
     int64[2] (see validate.qv_sums for the contract).  CUDA tensors:
-    the probe_qv kernel."""
+    the probe_qv kernel, which searches through `index`, the table's
+    bucket directory (starts, shift) of ops/index.py; CPU tensors
+    ignore it."""
     tab = (tkeys, tcov, tfw, tbw)
     if not _on_cuda("probe_qv", *tab, qkeys, qctx):
         return V.qv_sums(*tab, qkeys, qctx, lead, hi, cutoff)
     from ._build import library
 
     lib = library()
-    t = _check_table("probe_qv table", *tab)
+    _check_table("probe_qv table", *tab)
+    starts, nb, shift = _check_index("probe_qv", index, tkeys)
     q = qkeys.shape[0]
     _check("probe_qv qkeys", qkeys, torch.int64, (q,))
     _check("probe_qv qctx", qctx, torch.uint8, (q,))
@@ -157,24 +183,27 @@ def probe_qv_cuda(tkeys, tcov, tfw, tbw, qkeys, qctx, lead: int, hi: int,
     if count == 0:  # nothing to probe: no launch, so no count
         return torch.zeros(2, dtype=torch.int64, device=qkeys.device)
     out = torch.empty(2, dtype=torch.int64, device=qkeys.device)
-    _launch("probe_qv", lib.kq_probe_qv, *_ptrs(*tab), t,
+    _launch("probe_qv", lib.kq_probe_qv, *_ptrs(*tab, starts), nb, shift,
             *_ptrs(qkeys, qctx), lead, count, max(int(cutoff), 1),
             out.data_ptr())
     LAUNCHES["probe_qv"] += 1
     return out
 
 
-def probe_select_cuda(tkeys, tcov, tfw, tbw, qkeys, qctx):
+def probe_select_cuda(tkeys, tcov, tfw, tbw, qkeys, qctx, index=None):
     """(found, cov, right, left) per query, in query order (see
     validate.probe_select for the contract).  CUDA tensors: the
-    probe_select kernel."""
+    probe_select kernel, which searches through `index`, the table's
+    bucket directory (starts, shift) of ops/index.py; CPU tensors
+    ignore it."""
     tab = (tkeys, tcov, tfw, tbw)
     if not _on_cuda("probe_select", *tab, qkeys, qctx):
         return V.probe_select(*tab, qkeys, qctx)
     from ._build import library
 
     lib = library()
-    t = _check_table("probe_select table", *tab)
+    _check_table("probe_select table", *tab)
+    starts, nb, shift = _check_index("probe_select", index, tkeys)
     q = qkeys.shape[0]
     _check("probe_select qkeys", qkeys, torch.int64, (q,))
     _check("probe_select qctx", qctx, torch.uint8, (q,))
@@ -185,8 +214,8 @@ def probe_select_cuda(tkeys, tcov, tfw, tbw, qkeys, qctx):
     left = torch.empty(q, dtype=torch.int64, device=dev)
     if q == 0:  # nothing to probe: no launch, so no count
         return found, cov, right, left
-    _launch("probe_select", lib.kq_probe_select, *_ptrs(*tab), t,
-            *_ptrs(qkeys, qctx), q, *_ptrs(found, cov, right, left))
+    _launch("probe_select", lib.kq_probe_select, *_ptrs(*tab, starts), nb,
+            shift, *_ptrs(qkeys, qctx), q, *_ptrs(found, cov, right, left))
     LAUNCHES["probe_select"] += 1
     return found, cov, right, left
 

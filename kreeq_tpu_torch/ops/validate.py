@@ -84,21 +84,23 @@ def qv_sums(tkeys, tcov, tfw, tbw, qkeys, qctx, lead: int, hi: int,
 
 
 def validate_qv_sums(tkeys, tcov, tfw, tbw, codes, k: int, cutoff: int,
-                     lead: int, hi: int):
+                     lead: int, hi: int, index=None):
     """QV sums of one assembly window (counterpart of the JAX
     validate_qv_sums_pallas): extraction in PyTorch, then the probe
     through ops.kernels.probe_qv_cuda, which launches the CUDA kernel
     for CUDA tensors and runs qv_sums for CPU tensors.
 
-    codes: uint8[N] window buffer on the table's device.  Returns
-    int64[2] = (#missing, #edge-missing) over positions
-    lead <= i < hi."""
+    codes: uint8[N] window buffer on the table's device; index: the
+    table's bucket directory (ops/index.py), which the CUDA kernel
+    needs and the CPU ignores.  Returns int64[2] = (#missing,
+    #edge-missing) over positions lead <= i < hi."""
     from .kernels import probe_qv_cuda
 
     if codes.shape[0] - k + 1 <= 0:
         return torch.zeros(2, dtype=torch.int64, device=codes.device)
     keys, ctx = _extract_ctx_qv(codes, k)
-    return probe_qv_cuda(tkeys, tcov, tfw, tbw, keys, ctx, lead, hi, cutoff)
+    return probe_qv_cuda(tkeys, tcov, tfw, tbw, keys, ctx, lead, hi, cutoff,
+                         index)
 
 
 # ---------------------------------------------------------------------------
@@ -176,18 +178,21 @@ def _classify_sel(codes, sel, k: int, cutoff: int, isfw, valid):
     return valid, missing, edge_missing, cov, isfw, right, left
 
 
-def validate_positions(tkeys, tcov, tfw, tbw, codes, k: int, cutoff: int):
+def validate_positions(tkeys, tcov, tfw, tbw, codes, k: int, cutoff: int,
+                       index=None):
     """Per-position classification of one assembly window (counterpart
     of the JAX validate_positions and validate_positions_pallas):
     extraction and classification in PyTorch, the probe through
     ops.kernels.probe_select_cuda, which launches the CUDA kernel for
     CUDA tensors and runs probe_select for CPU tensors.
 
-    codes: uint8[N] window buffer on the table's device.  Returns seven
-    arrays of length P = N - k + 1: valid, missing, edge_missing (bool),
-    cov int64, isfw bool, right int64, left int64."""
+    codes: uint8[N] window buffer on the table's device; index: the
+    table's bucket directory (ops/index.py), which the CUDA kernel
+    needs and the CPU ignores.  Returns seven arrays of length P =
+    N - k + 1: valid, missing, edge_missing (bool), cov int64, isfw
+    bool, right int64, left int64."""
     from .kernels import probe_select_cuda
 
     keys, isfw, valid, ctx = _extract_ctx(codes, k)
-    sel = probe_select_cuda(tkeys, tcov, tfw, tbw, keys, ctx)
+    sel = probe_select_cuda(tkeys, tcov, tfw, tbw, keys, ctx, index)
     return _classify_sel(codes, sel, k, cutoff, isfw, valid)

@@ -300,6 +300,46 @@ def test_union_fatal_paths_match_jax(tmp_path, both, capsys, ks, msg):
         assert capsys.readouterr().err == msg
 
 
+@pytest.mark.parametrize("name", ["KREEQ_TPU_BUILD_CKPT",
+                                  "KREEQ_TPU_MAX_TABLE_ROWS",
+                                  "KREEQ_TPU_HOST_MERGE_ROWS",
+                                  "KREEQ_TPU_FORCE_SHARDED"])
+def test_unported_switch_is_refused(tmp_path, monkeypatch, capsys, name):
+    """The JAX package's out-of-core, resume and sharding switches are
+    not ported: a run that sets one exits non-zero before any work and
+    names the switch, instead of ignoring it."""
+    from kreeq_tpu_torch.cli.main import run
+
+    reads, asm = _write_inputs(tmp_path, 0)
+    monkeypatch.setenv("KREEQ_TPU_PLATFORM", "cpu")
+    monkeypatch.setenv(name, "1")
+    db = tmp_path / "reads.kreeq"
+    with pytest.raises(SystemExit) as exc:
+        run(["kreeq", "validate", "-r", reads, "-f", asm, "-o", str(db)])
+    assert exc.value.code != 0
+    err = capsys.readouterr()
+    assert name in err.err and "does not honour" in err.err
+    assert err.out == "" and not db.exists()
+
+
+@pytest.mark.parametrize("name,value", [
+    ("KREEQ_TPU_BUILD_CKPT", ""), ("KREEQ_TPU_MAX_TABLE_ROWS", ""),
+    ("KREEQ_TPU_HOST_MERGE_ROWS", ""), ("KREEQ_TPU_FORCE_SHARDED", ""),
+    ("KREEQ_TPU_FORCE_SHARDED", "0")])
+def test_switch_value_jax_ignores_runs(tmp_path, monkeypatch, name, value):
+    """A switch set to a value the JAX package does not act on (empty,
+    or FORCE_SHARDED other than "1") is not refused: the run prints
+    what it prints without the switch."""
+    from kreeq_tpu_torch.cli.main import run
+
+    reads, asm = _write_inputs(tmp_path, 0)
+    monkeypatch.setenv("KREEQ_TPU_PLATFORM", "cpu")
+    argv = ["kreeq", "validate", "-r", reads, "-f", asm]
+    want = _stdout(run, argv)
+    monkeypatch.setenv(name, value)
+    assert _stdout(run, argv) == want
+
+
 @pytest.fixture(scope="module")
 def bkwig(tmp_path_factory):
     """A .bkwig written by the JAX CLI, and a coordinate file."""

@@ -3,10 +3,13 @@ on edge cases: empty input, all-SENTINEL input, one key repeated 10^6
 times, runs of every length up to three count tiles at every offset
 across a tile seam, equal merge pairs on every merge tile seam, A == B,
 1 row against 10^6, saturation, k = 32, SENTINEL queries and the
-per-position sentinels of the variants scan; and the subgraph searches'
-neighbour scan (plain torch ops) on the card against the CPU.  Needs a
-CUDA device
-(the `gpu` marker); run on the card with
+per-position sentinels of the variants scan; for the two validate
+probes every bits of the bucket directory's size rule, k = 4, a bucket
+of 10^5 rows, queries on every bucket's first key and the key before
+it, counters of 2^31 and above, and a call without the directory; and
+the subgraph searches' neighbour scan (plain torch ops) on the card
+against the CPU.  Needs a
+CUDA device (the `gpu` marker); run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m gpu
 
@@ -303,11 +306,87 @@ def test_merge_ragged_sizes_both_tailed(cuda, na, nb):
         _merge_both(b, a)
 
 
-@pytest.mark.parametrize("k,cutoff", [(21, 0), (32, 3)])
+def _rule_bits(k):
+    """Every bits that the directory's size rule gives, over table sizes
+    from 1 row to 2^23."""
+    from kreeq_tpu_torch.ops.index import bucket_bits
+
+    return sorted({bucket_bits(1 << j, k) for j in range(24)})
+
+
+def _skewed_table(rng, k, device, pile=100_000):
+    """A table of k-mer keys whose first bucket holds a poly-A pile of
+    `pile` rows (the keys just above AA..A), every first key of the
+    2^12 buckets at 12 bits and the key before every other one, random
+    keys (of both signs at k = 32), a SENTINEL tail; counters small, so
+    that zero edges and cov under the cutoff occur, and in some rows at
+    2^31 and above.  Returns the table and the u64 keys."""
+    from kreeq_tpu_torch.constants import keys_from_u64
+
+    hi = np.iinfo(np.uint64).max if k == 32 else 1 << (2 * k)
+    shift = np.uint64(2 * k - 12)
+    firsts = np.arange(1 << 12, dtype=np.uint64) << shift
+    u64 = np.unique(np.concatenate([
+        np.arange(1, pile + 1, dtype=np.uint64), firsts[::2],
+        firsts[1::2] - np.uint64(1),
+        rng.integers(0, hi, 50_000, dtype=np.uint64)]))
+    t = u64.shape[0]
+    pad = 9
+    keys = np.concatenate([keys_from_u64(u64), np.full(pad, np.iinfo(
+        np.int64).max)])
+    cov = np.concatenate([rng.integers(0, 4, t), np.zeros(pad, np.int64)])
+    fw = np.concatenate([rng.integers(0, 3, (t, 4)),
+                         np.zeros((pad, 4), np.int64)])
+    bw = np.concatenate([rng.integers(0, 3, (t, 4)),
+                         np.zeros((pad, 4), np.int64)])
+    cov[:t:5] = rng.integers(1 << 31, 1 << 32, cov[:t:5].shape[0])
+    fw[1:t:7] = (1 << 32) - 1
+    bw[2:t:9] = 1 << 31
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (keys, cov, fw, bw)), u64
+
+
+def _skewed_queries(rng, k, u64, shift, device):
+    """Queries of the pile (held, and just past it), every bucket's first
+    key and the key before it at the directory's `shift`, table keys,
+    random keys and SENTINELs; random ctx selectors 0-8 on each side."""
+    from kreeq_tpu_torch.constants import SENTINEL, keys_from_u64
+
+    hi = np.iinfo(np.uint64).max if k == 32 else 1 << (2 * k)
+    nb = (hi >> shift) + 1 if k == 32 else hi >> shift
+    firsts = np.arange(nb, dtype=np.uint64) << np.uint64(shift)
+    q = np.concatenate([u64[:100_000:3], u64[:50] + np.uint64(100_000),
+                        firsts, firsts[1:] - np.uint64(1), u64[::7],
+                        rng.integers(0, hi, 20_000, dtype=np.uint64)])
+    qkeys = np.concatenate([keys_from_u64(q), np.full(5, SENTINEL)])
+    qkeys = qkeys[rng.permutation(qkeys.shape[0])]
+    ctx = (rng.integers(0, 9, qkeys.shape[0])
+           | (rng.integers(0, 9, qkeys.shape[0]) << 4)).astype(np.uint8)
+    return (torch.from_numpy(qkeys).to(device),
+            torch.from_numpy(ctx).to(device))
+
+
+def _qv_both(tab, qkeys, qctx, cutoff, index):
+    from kreeq_tpu_torch.ops import validate as V
+    from kreeq_tpu_torch.ops.kernels import probe_qv_cuda
+
+    q = qkeys.shape[0]
+    for lead, hi in ((0, q), (1, q - 1), (5, q + 10), (q, q + 3)):
+        got = probe_qv_cuda(*tab, qkeys, qctx, lead, hi, cutoff, index)
+        want = V.qv_sums(*tab, qkeys, qctx, lead, hi, cutoff)
+        _same((got,), (want,))
+
+
+@pytest.mark.parametrize("k,cutoff", [(21, 0), (32, 3), (4, 1)])
 def test_probe_qv_matches_plain(cuda, k, cutoff):
+    """On a genome's table (SENTINEL-tailed) at every bits of the size
+    rule; on a table with a poly-A bucket of 10^5 rows, queried on each
+    bucket's first key and the key before it; an empty table; and a
+    CUDA call without the directory, which raises."""
     from kreeq_tpu_torch.constants import SENTINEL
     from kreeq_tpu_torch.ops import kmers as K
     from kreeq_tpu_torch.ops import validate as V
+    from kreeq_tpu_torch.ops.index import bucket_index
     from kreeq_tpu_torch.ops.kernels import probe_qv_cuda
 
     rng = np.random.default_rng(k)
@@ -321,21 +400,44 @@ def test_probe_qv_matches_plain(cuda, k, cutoff):
     asm[rng.integers(0, asm.shape[0], 50)] = 4
     qkeys, qctx = V._extract_ctx_qv(torch.from_numpy(asm).to(cuda), k)
     assert bool((qkeys == SENTINEL).any())  # SENTINEL queries present
+    for bits in [None] + _rule_bits(k):
+        _qv_both(tab, qkeys, qctx, cutoff, bucket_index(tab[0], k, bits))
     q = qkeys.shape[0]
-    for lead, hi in ((0, q), (1, q - 1), (5, q + 10), (q, q + 3)):
-        got = probe_qv_cuda(*tab, qkeys, qctx, lead, hi, cutoff)
-        want = V.qv_sums(*tab, qkeys, qctx, lead, hi, cutoff)
-        _same((got,), (want,))
+    with pytest.raises(ValueError, match="bucket directory"):
+        probe_qv_cuda(*tab, qkeys, qctx, 0, q, cutoff)
     empty = tuple(t[:0] for t in tab)
-    _same((probe_qv_cuda(*empty, qkeys, qctx, 0, q, cutoff),),
+    _same((probe_qv_cuda(*empty, qkeys, qctx, 0, q, cutoff,
+                         bucket_index(empty[0], k)),),
           (V.qv_sums(*empty, qkeys, qctx, 0, q, cutoff),))
+    if k < 21:
+        return
+    stab, u64 = _skewed_table(rng, k, cuda)
+    for bits in (None, 8, 21):
+        index = bucket_index(stab[0], k, bits)
+        sizes = index[0][1:] - index[0][:-1]
+        assert int(sizes.max()) >= 100_000
+        sq, sctx = _skewed_queries(rng, k, u64, index[1], cuda)
+        _qv_both(stab, sq, sctx, cutoff, index)
 
 
-@pytest.mark.parametrize("k", [21, 32])
+def _select_both(tab, qkeys, qctx, index):
+    from kreeq_tpu_torch.ops import validate as V
+    from kreeq_tpu_torch.ops.kernels import probe_select_cuda
+
+    got = probe_select_cuda(*tab, qkeys, qctx, index)
+    want = V.probe_select(*tab, qkeys, qctx)
+    assert bool(want[0].any()) and bool(want[2].any())
+    _same(got, want)
+
+
+@pytest.mark.parametrize("k", [21, 32, 4])
 def test_probe_select_matches_plain(cuda, k):
+    """The cases of test_probe_qv_matches_plain, for the track probe;
+    also no query."""
     from kreeq_tpu_torch.constants import SENTINEL
     from kreeq_tpu_torch.ops import kmers as K
     from kreeq_tpu_torch.ops import validate as V
+    from kreeq_tpu_torch.ops.index import bucket_index
     from kreeq_tpu_torch.ops.kernels import probe_select_cuda
 
     rng = np.random.default_rng(k + 1)
@@ -353,15 +455,23 @@ def test_probe_select_matches_plain(cuda, k):
     # some 0 selectors too (no neighbour on that side)
     qctx[:100] &= 0xF0
     qctx[100:200] &= 0x0F
-    got = probe_select_cuda(*tab, qkeys, qctx)
-    want = V.probe_select(*tab, qkeys, qctx)
-    assert bool(want[0].any()) and bool(want[2].any())
-    _same(got, want)
+    for bits in [None] + _rule_bits(k):
+        _select_both(tab, qkeys, qctx, bucket_index(tab[0], k, bits))
+    with pytest.raises(ValueError, match="bucket directory"):
+        probe_select_cuda(*tab, qkeys, qctx)
+    index = bucket_index(tab[0], k)
     empty = tuple(t[:0] for t in tab)
-    _same(probe_select_cuda(*empty, qkeys, qctx),
+    _same(probe_select_cuda(*empty, qkeys, qctx, bucket_index(empty[0], k)),
           V.probe_select(*empty, qkeys, qctx))
-    _same(probe_select_cuda(*tab, qkeys[:0], qctx[:0]),
+    _same(probe_select_cuda(*tab, qkeys[:0], qctx[:0], index),
           V.probe_select(*tab, qkeys[:0], qctx[:0]))
+    if k < 21:
+        return
+    stab, u64 = _skewed_table(rng, k, cuda)
+    for bits in (None, 8, 21):
+        index = bucket_index(stab[0], k, bits)
+        sq, sctx = _skewed_queries(rng, k, u64, index[1], cuda)
+        _select_both(stab, sq, sctx, index)
 
 
 @pytest.mark.parametrize("k", [21, 32])
@@ -408,6 +518,7 @@ def test_empty_probes_count_no_launch(cuda):
     """A probe with no position to search launches no kernel, so its
     launch count stays where it was."""
     from kreeq_tpu_torch.ops import kernels
+    from kreeq_tpu_torch.ops.index import bucket_index
 
     tab = (torch.zeros(3, dtype=torch.int64, device=cuda),
            torch.ones(3, dtype=torch.int64, device=cuda),
@@ -415,10 +526,12 @@ def test_empty_probes_count_no_launch(cuda):
            torch.zeros((3, 4), dtype=torch.int64, device=cuda))
     qkeys = torch.zeros(0, dtype=torch.int64, device=cuda)
     qctx = torch.zeros(0, dtype=torch.uint8, device=cuda)
+    index = bucket_index(tab[0], 21)
     kernels.reset_launches()
-    found, cov, right, left = kernels.probe_select_cuda(*tab, qkeys, qctx)
+    found, cov, right, left = kernels.probe_select_cuda(*tab, qkeys, qctx,
+                                                        index)
     assert [t.shape[0] for t in (found, cov, right, left)] == [0] * 4
-    sums = kernels.probe_qv_cuda(*tab, qkeys, qctx, 0, 5, 0)
+    sums = kernels.probe_qv_cuda(*tab, qkeys, qctx, 0, 5, 0, index)
     assert sums.tolist() == [0, 0]
     found, cov, fw, bw = kernels.probe_sorted_cuda(*tab, qkeys)
     assert [tuple(t.shape) for t in (found, cov, fw, bw)] == [
