@@ -15,13 +15,14 @@ non-zero and never prints the final line):
      poly-A pile of 10^6 records and as sorted random keys (every tile
      full of heads); the build's largest merge; the table's bucket
      directory (bits, build time, mean and largest bucket); one full
-     4,194,304-position validate window for each validate probe, also
-     at 20, 21 and 22 bits, and B3 on a table with a 10^6-row poly-A
-     pile; one full variants window of per-position sentinel keys for
-     the generic probe; exact equality, median times with CUDA events,
-     each beside its bound (the bytes these inputs need at 3.35 TB/s: a
-     SENTINEL row's key only) and, for the validate probes, the sector
-     floor (the sectors their reads touch, per array, counted once);
+     4,194,304-position validate window for each validate probe and
+     one full variants window of per-position sentinel keys for the
+     generic probe, all three through the directory, also at 20, 21 and
+     22 bits, and B3 and B5 on a table with a 10^6-row poly-A pile;
+     exact equality, median times with CUDA events, each beside its
+     bound (the bytes these inputs need at 3.35 TB/s: a SENTINEL row's
+     key only) and, for the probes, the sector floor (the sectors their
+     reads touch, per array, counted once);
   4. end to end: `kreeq validate -r reads.fq -f asm.fa -k 21` through
      the port's CLI on the card, on a generated yeast-scale assembly
      (planted SNV/INS/DEL, an N run, IUPAC bases, short contigs) and
@@ -48,7 +49,8 @@ non-zero and never prints the final line):
      asm.bkwig` run; summaries and the trace go to DIR;
   8. the variants path against phase 6's DB: `validate -d reads.kreeq
      -f asm.fa --detect-anomalies asm.anom.bed` on the whole assembly
-     (QV rows must equal phase 4's), then `validate -d reads.kreeq -f
+     (QV rows must equal phase 4's; the generic probe's calls timed
+     with CUDA events and summed), then `validate -d reads.kreeq -f
      chr2_1mbp.fa -o asm.vcf` on the first 1,000,000 bases of chr2 (the
      host search of every branch point bounds its size; the table and
      the scan window are full size): the VCF must have rows, each REF
@@ -390,35 +392,85 @@ def touched_rows(tkeys, qkeys) -> int:
     return int(torch.unique(row[found]).shape[0])
 
 
-def sector_floor_ms(tkeys, shift: int, qkeys, qctx, streamed: int) -> float:
-    """A validate probe's floor under random access: the 32-byte sectors
-    of each array that the queries touch at the least, each counted
-    once (the directory's two entries, the key at the row the search
-    ends on, a found row's cov and the fw or bw row of each selected
-    counter, 32 B a row), plus the `streamed` bytes of queries and
-    outputs, at the H100's 3.35 TB/s."""
+def _distinct(x) -> int:
+    import torch
+
+    return int(torch.unique(x).shape[0])
+
+
+def _search_sectors(tkeys, index, qkeys):
+    """What the directory searches of `qkeys` read at the least: the
+    distinct 32-byte sectors of each searched query's two directory
+    entries and of the key at the row its search ends on (SENTINEL
+    queries and keys past the directory are not searched).  Returns
+    (sectors, searched mask, found mask over the searched, found rows)."""
     import torch
 
     from kreeq_tpu_torch.constants import SENTINEL
     from kreeq_tpu_torch.ops.index import bucket_of
 
-    keep = qkeys != SENTINEL
-    q, ctx = qkeys[keep], qctx[keep].to(torch.int64)
+    starts, shift = index
+    b = bucket_of(qkeys, shift)
+    keep = (qkeys != SENTINEL) & (b < starts.shape[0] - 1)
+    q, b = qkeys[keep], b[keep]
     row = torch.searchsorted(tkeys, q).clamp_(max=max(tkeys.shape[0] - 1,
                                                       0))
     found = tkeys[row] == q
-    b = bucket_of(q, shift)
-    frow, fctx = row[found], ctx[found]
+    sectors = _distinct(torch.cat([b, b + 1]) >> 2) + _distinct(row >> 2)
+    return sectors, keep, found, row[found]
+
+
+def sector_floor_ms(tkeys, index, qkeys, qctx, streamed: int) -> float:
+    """A validate probe's floor under random access: the 32-byte sectors
+    of each array that the queries touch at the least, each counted
+    once (the search's, then a found row's cov and the fw or bw row of
+    each selected counter, 32 B a row), plus the `streamed` bytes of
+    queries and outputs, at the H100's 3.35 TB/s."""
+    import torch
+
+    sectors, keep, found, frow = _search_sectors(tkeys, index, qkeys)
+    fctx = qctx[keep][found].to(torch.int64)
     # a selector's sector: its row of fw (1-4) or of bw (5-8)
     counters = [2 * frow[sel != 0] + (sel[sel != 0] > 4)
                 for sel in (fctx & 15, fctx >> 4)]
+    return bound_ms(32 * (sectors + _distinct(frow >> 2)
+                          + _distinct(torch.cat(counters))) + streamed)
 
-    def distinct(x):
-        return int(torch.unique(x).shape[0])
 
-    sectors = (distinct(torch.cat([b, b + 1]) >> 2) + distinct(row >> 2)
-               + distinct(frow >> 2) + distinct(torch.cat(counters)))
-    return bound_ms(32 * sectors + streamed)
+def rows_floor_ms(tkeys, index, qkeys, streamed: int) -> float:
+    """The generic probe's floor, as sector_floor_ms with each found row
+    read whole: its cov sector, its fw row and its bw row (32 B, one
+    sector each)."""
+    sectors, _keep, _found, frow = _search_sectors(tkeys, index, qkeys)
+    return bound_ms(32 * (sectors + _distinct(frow >> 2)
+                          + 2 * _distinct(frow)) + streamed)
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, keep=lambda args, got: (args, got)):
+    """Within the block, each call of module.<name> runs as it is between
+    two CUDA events; yields the list of (keep(args, result), start, end)
+    of the calls (read the events after a synchronize).  What `keep`
+    returns stays alive until the list goes."""
+    import torch
+
+    wrapped = getattr(module, name)
+    calls = []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = wrapped(*args, **kwargs)
+        end.record()
+        calls.append((keep(args, got), start, end))
+        return got
+
+    setattr(module, name, timed)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, wrapped)
 
 
 def phase_kernels(fq: str, fa: str, device):
@@ -449,28 +501,14 @@ def phase_kernels(fq: str, fa: str, device):
             self.largest = None
 
         def merge(self, stored, fresh):
-            wrapper = kernels.merge_sorted_cuda
-            calls = []
-
-            def timed(*args):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                got = wrapper(*args)
-                end.record()
-                end.synchronize()
-                calls.append((args, got, start.elapsed_time(end)))
-                return got
-
-            kernels.merge_sorted_cuda = timed
-            try:
+            with timed_calls(kernels, "merge_sorted_cuda") as calls:
                 got = super().merge(stored, fresh)
-            finally:
-                kernels.merge_sorted_cuda = wrapper
-            if len(calls) != 1 or calls[0][1] is not got:
+            if len(calls) != 1 or calls[0][0][1] is not got:
                 raise AssertionError(f"TreeMerger.merge made {len(calls)} "
                                      f"kernel calls, not one")
-            args, _got, ms = calls[0]
+            (args, _got), start, end = calls[0]
+            end.synchronize()
+            ms = start.elapsed_time(end)
             a, b = args[:4], args[4:]
             na, nb = a[0].shape[0], b[0].shape[0]
             compare(f"merge_sorted (merge {len(self.merges) + 1}, na={na} "
@@ -578,7 +616,7 @@ def phase_kernels(fq: str, fa: str, device):
     # the validate probes' bucket directory, as the CLI builds it: once
     # per table, on the table (KmerTable.bucket_index)
     index = table.bucket_index()
-    starts, shift = index
+    starts = index[0]
     bits = (starts.shape[0] - 1).bit_length() - 1
     sizes = starts[1:] - starts[:-1]
     log(f"    bucket directory: {bits} bits, {starts.shape[0]} int64 "
@@ -593,7 +631,7 @@ def phase_kernels(fq: str, fa: str, device):
         shape=f"q={WINDOW} t={len(table)} bits={bits}",
         bound_ms=bound_ms(9 * WINDOW + 32 * touched_rows(
             table.keys, qkeys[1:1 + WINDOW]) + 16),
-        sector_ms=sector_floor_ms(table.keys, shift, *window,
+        sector_ms=sector_floor_ms(table.keys, index, *window,
                                   9 * WINDOW + 16),
         max_abs_err=compare("probe_qv", (kernels.probe_qv_cuda(
             *args, index),), (V.qv_sums(*args),)),
@@ -610,15 +648,33 @@ def phase_kernels(fq: str, fa: str, device):
         shape=f"q={q} t={len(table)} bits={bits}",
         bound_ms=bound_ms(9 * q + 32 * touched_rows(table.keys, skeys)
                           + 25 * q),
-        sector_ms=sector_floor_ms(table.keys, shift, skeys, sctx, 34 * q),
+        sector_ms=sector_floor_ms(table.keys, index, skeys, sctx, 34 * q),
         max_abs_err=compare("probe_select",
                             kernels.probe_select_cuda(*sargs, index),
                             V.probe_select(*sargs)),
         ms=cuda_ms(lambda: kernels.probe_select_cuda(*sargs, index)),
         plain_ms=cuda_ms(lambda: V.probe_select(*sargs)))
+    # the variants scan probes one window of positions, invalid windows
+    # carrying their per-position sentinels
+    vbuf = torch.from_numpy(seg.codes[:WINDOW + K - 1]).to(device)
+    vkeys, _visfw, _vvalid = _extract_sentinel(vbuf, K)
+    vargs = (*tab, vkeys)
+    vq = vkeys.shape[0]
+    # queries; every found row whole; found and a whole row out
+    res["probe_sorted"] = dict(
+        shape=f"q={vq} t={len(table)} bits={bits}",
+        bound_ms=bound_ms(8 * vq + 80 * touched_rows(table.keys, vkeys)
+                          + 73 * vq),
+        sector_ms=rows_floor_ms(table.keys, index, vkeys, 81 * vq),
+        max_abs_err=compare("probe_sorted",
+                            kernels.probe_sorted_cuda(*vargs, index),
+                            Km.probe_sorted(*vargs)),
+        ms=cuda_ms(lambda: kernels.probe_sorted_cuda(*vargs, index)),
+        plain_ms=cuda_ms(lambda: Km.probe_sorted(*vargs)))
     # the directory's size: each probe exact and timed at 20, 21 and 22
     # bits, in turns
     qb, sb = res["probe_qv"]["bound_ms"], res["probe_select"]["bound_ms"]
+    vb = res["probe_sorted"]["bound_ms"]
     for nbits in (20, 21, 22, 21, 20):
         idx = bucket_index(table.keys, K, nbits)
         compare(f"probe_qv ({nbits} bits)", (kernels.probe_qv_cuda(
@@ -626,14 +682,20 @@ def phase_kernels(fq: str, fa: str, device):
         compare(f"probe_select ({nbits} bits)",
                 kernels.probe_select_cuda(*sargs, idx),
                 V.probe_select(*sargs))
+        compare(f"probe_sorted ({nbits} bits)",
+                kernels.probe_sorted_cuda(*vargs, idx),
+                Km.probe_sorted(*vargs))
         qms = cuda_ms(lambda: kernels.probe_qv_cuda(*args, idx))
         sms = cuda_ms(lambda: kernels.probe_select_cuda(*sargs, idx))
-        qfloor = sector_floor_ms(table.keys, idx[1], *window,
-                                 9 * WINDOW + 16)
-        sfloor = sector_floor_ms(table.keys, idx[1], skeys, sctx, 34 * q)
+        vms = cuda_ms(lambda: kernels.probe_sorted_cuda(*vargs, idx))
+        qfloor = sector_floor_ms(table.keys, idx, *window, 9 * WINDOW + 16)
+        sfloor = sector_floor_ms(table.keys, idx, skeys, sctx, 34 * q)
+        vfloor = rows_floor_ms(table.keys, idx, vkeys, 81 * vq)
         log(f"    {nbits} bits: probe_qv {qms:.3f} ms ({qb / qms:.1%} of its "
             f"bound, sector floor {qfloor:.3f} ms)  probe_select {sms:.3f} "
-            f"ms ({sb / sms:.1%}, sector floor {sfloor:.3f} ms)  exact")
+            f"ms ({sb / sms:.1%}, sector floor {sfloor:.3f} ms)  "
+            f"probe_sorted {vms:.3f} ms ({vb / vms:.1%}, sector floor "
+            f"{vfloor:.3f} ms)  exact")
         del idx
     # a poly-A pile: the table's first PILE rows become the keys just
     # above AA..A, all in bucket 0, and one query in 8 lands in that
@@ -644,34 +706,26 @@ def phase_kernels(fq: str, fa: str, device):
         raise AssertionError("the pile does not sort below the table")
     pidx = bucket_index(pkeys, K)
     gen = torch.Generator(device=device).manual_seed(11)
-    pq = qkeys.clone()
-    pq[1::8] = KEY_BIAS + torch.randint(1, 2 * PILE, pq[1::8].shape,
-                                        device=device, generator=gen)
+    pq, pvq = qkeys.clone(), vkeys.clone()
+    for keys in (pq, pvq):
+        keys[1::8] = KEY_BIAS + torch.randint(1, 2 * PILE, keys[1::8].shape,
+                                              device=device, generator=gen)
     pargs = (pkeys, *tab[1:], pq, qctx, 1, 1 + WINDOW, 0)
+    pvargs = (pkeys, *tab[1:], pvq)
     compare("probe_qv (pile)", (kernels.probe_qv_cuda(*pargs, pidx),),
             (V.qv_sums(*pargs),))
-    log(f"    probe_qv with a poly-A pile of {PILE} rows in one bucket "
-        f"(largest {int((pidx[0][1:] - pidx[0][:-1]).max())}), one query "
-        f"in 8 in that bucket: kernel "
+    compare("probe_sorted (pile)", kernels.probe_sorted_cuda(*pvargs, pidx),
+            Km.probe_sorted(*pvargs))
+    log(f"    a poly-A pile of {PILE} rows in one bucket (largest "
+        f"{int((pidx[0][1:] - pidx[0][:-1]).max())}), one query in 8 in "
+        f"that bucket: probe_qv kernel "
         f"{cuda_ms(lambda: kernels.probe_qv_cuda(*pargs, pidx)):.3f} ms  "
-        f"plain {cuda_ms(lambda: V.qv_sums(*pargs)):.3f} ms  exact")
-    del pkeys, pidx, pq, pargs
-    # the variants scan probes one window of positions, invalid windows
-    # carrying their per-position sentinels
-    vbuf = torch.from_numpy(seg.codes[:WINDOW + K - 1]).to(device)
-    vkeys, _visfw, _vvalid = _extract_sentinel(vbuf, K)
-    vargs = (*tab, vkeys)
-    q = vkeys.shape[0]
-    # queries; every found row whole; found and a whole row out
-    res["probe_sorted"] = dict(
-        shape=f"q={q} t={len(table)}",
-        bound_ms=bound_ms(8 * q + 80 * touched_rows(table.keys, vkeys)
-                          + 73 * q),
-        max_abs_err=compare("probe_sorted",
-                            kernels.probe_sorted_cuda(*vargs),
-                            Km.probe_sorted(*vargs)),
-        ms=cuda_ms(lambda: kernels.probe_sorted_cuda(*vargs)),
-        plain_ms=cuda_ms(lambda: Km.probe_sorted(*vargs)))
+        f"plain {cuda_ms(lambda: V.qv_sums(*pargs)):.3f} ms; probe_sorted "
+        f"kernel "
+        f"{cuda_ms(lambda: kernels.probe_sorted_cuda(*pvargs, pidx)):.3f} "
+        f"ms  plain {cuda_ms(lambda: Km.probe_sorted(*pvargs)):.3f} ms  "
+        f"exact")
+    del pkeys, pidx, pq, pvq, pargs, pvargs
     for name, *_rest in KERNELS:
         r = res[name]
         floor = (f"; sector floor {r['sector_ms']:.3f} ms"
@@ -888,7 +942,10 @@ def phase_variants(fa, tmp, qv_rows, device):
     anomaly scan of the whole assembly, then candidate errors as VCF rows
     on the first CUT_VCF bases of chr2.  Each CLI run is a main path
     (`drive`)."""
+    import torch
+
     from kreeq_tpu_torch.core import variants
+    from kreeq_tpu_torch.ops import kernels
 
     os.environ.pop("KREEQ_TPU_PLATFORM", None)
     db = os.path.join(tmp, "reads.kreeq")
@@ -902,9 +959,23 @@ def phase_variants(fa, tmp, qv_rows, device):
         return out, launches
 
     anom = os.path.join(tmp, "asm.anom.bed")
-    out, _l_anom = path(["kreeq", "validate", "-d", db, "-f", fa,
-                         "--detect-anomalies", anom],
-                        ("probe_qv", "probe_sorted"), "anomalies")
+    # each call's query count only: its tensors are freed as the CLI
+    # frees them, so the run's peak device memory is its own
+    with timed_calls(kernels, "probe_sorted_cuda",
+                     lambda args, _got: args[4].shape[0]) as calls:
+        out, l_anom = path(["kreeq", "validate", "-d", db, "-f", fa,
+                            "--detect-anomalies", anom],
+                           ("probe_qv", "probe_sorted"), "anomalies")
+    torch.cuda.synchronize()
+    b5 = [(q, s.elapsed_time(e)) for q, s, e in calls]
+    if len(b5) != l_anom["probe_sorted"]:
+        raise AssertionError(f"{len(b5)} probe_sorted calls, "
+                             f"{l_anom['probe_sorted']} launches")
+    log(f"    probe_sorted over the anomaly run's {len(b5)} launches "
+        f"({sum(q for q, _ms in b5)} queries): "
+        f"{sum(ms for _q, ms in b5):.3f} ms in all (wrapper time: CUDA "
+        f"events around each call, its host checks and allocations "
+        f"included)")
     rows = out.splitlines()[-2:]
     if rows != qv_rows:
         raise AssertionError(f"QV rows of the anomalies run {rows} differ "
@@ -964,8 +1035,8 @@ def _snapshot(sub):
 def _subgraph_probes(db, cut, device):
     """B5 against its plain version at the subgraph path's own shapes,
     none a multiple of the kernel's block: the cut's extraction keys,
-    the first traversal round's survivors, and the best-first
-    prefilter's unique survivors, all against the full table.  Also
+    the first traversal round's survivors, the best-first prefilter's
+    unique survivors, and one key, all against the full table.  Also
     extraction with native/subnode_ext and with the pure-Python nodes,
     which must give the same dict."""
     import torch
@@ -1014,15 +1085,19 @@ def _subgraph_probes(db, cut, device):
     pkeys = torch.unique(survivors(fkeys, ffw, fbw, members, K,
                                    dbg.ui.cov_cutoff, dedup=False)[0])
     tab = (table.keys, table.cov, table.fw, table.bw)
+    index = table.bucket_index()
+    # one key: the wrapper's own floor under CUDA events (its host work
+    # between the two events), below which no shape here can read
     for name, q in (("extraction", qkeys), ("round 1", rkeys),
-                    ("prefilter", pkeys)):
+                    ("prefilter", pkeys), ("one key", qkeys[:1])):
         args = (*tab, q)
-        compare(f"probe_sorted ({name})", kernels.probe_sorted_cuda(*args),
+        compare(f"probe_sorted ({name})",
+                kernels.probe_sorted_cuda(*args, index),
                 Km.probe_sorted(*args))
+        ms = cuda_ms(lambda: kernels.probe_sorted_cuda(*args, index))
         log(f"    probe_sorted {name:10s} q={q.shape[0]} t={len(table)} "
-            f"kernel {cuda_ms(lambda: kernels.probe_sorted_cuda(*args)):.3f}"
-            f" ms  plain {cuda_ms(lambda: Km.probe_sorted(*args)):.3f} ms  "
-            f"exact")
+            f"kernel {ms:.3f} ms  plain "
+            f"{cuda_ms(lambda: Km.probe_sorted(*args)):.3f} ms  exact")
 
 
 def phase_subgraph(tmp, device):

@@ -4,10 +4,11 @@ Counterpart of kreeq_tpu/core/table.py for the single-device build: a
 sorted structure of arrays {keys, cov, fw[4], bw[4]} of exactly n rows
 on one device, in the port's dtypes (constants.py).  The build counts
 read chunks and tree-merges the chunk tables on the device through the
-kernel wrappers of ops/kernels.py.  The lookups of the variants path
-are `probe_device` / `probe` (batched, through probe_sorted_cuda) and
-`lookup` (scalar, on a host copy); the validate probes search through
-the bucket directory that `bucket_index` builds once per table.
+kernel wrappers of ops/kernels.py.  The lookups of the variants and
+subgraph paths are `probe_device` / `probe` (batched, through
+probe_sorted_cuda) and `lookup` (scalar, on a host copy); on the card
+every probe, these and the validate probes, searches through the bucket
+directory that `bucket_index` builds once per table.
 
 Not yet ported: the host-merge spill for tables beyond device memory,
 table windows, build checkpoints and sharded builds.  A merge that
@@ -134,7 +135,7 @@ class KmerTable:
     # host copy for lookup(): keys int64 [n], counters u32; made once
     _host: Optional[Tuple[np.ndarray, ...]] = field(
         default=None, init=False, repr=False, compare=False)
-    # bucket directory of the validate probes: (starts, shift); made once
+    # bucket directory of the CUDA probes: (starts, shift); made once
     _bucket: Optional[Tuple[torch.Tensor, int]] = field(
         default=None, init=False, repr=False, compare=False)
 
@@ -206,11 +207,14 @@ class KmerTable:
 
     def probe_device(self, qkeys: torch.Tensor):
         """Batched lookup of int64 keys on the table's device: (found,
-        cov, fw, bw) tensors in query order, through probe_sorted_cuda."""
+        cov, fw, bw) tensors in query order, through probe_sorted_cuda;
+        on CUDA with the table's bucket directory (the CPU's plain probe
+        needs none, so none is built there)."""
         from ..ops.kernels import probe_sorted_cuda
 
+        index = self.bucket_index() if self.device.type == "cuda" else None
         return probe_sorted_cuda(self.keys, self.cov, self.fw, self.bw,
-                                 qkeys)
+                                 qkeys, index)
 
     def probe(self, qkeys: torch.Tensor) -> Tuple[np.ndarray, np.ndarray,
                                                   np.ndarray, np.ndarray]:
@@ -228,8 +232,9 @@ class KmerTable:
 
     def bucket_index(self) -> Tuple[torch.Tensor, int]:
         """(starts, shift) on the table's device (ops/index.py): the
-        bucket directory that the probe_qv and probe_select kernels
-        search through; built at the first call and kept."""
+        bucket directory that the probe_qv, probe_select and
+        probe_sorted kernels search through; built at the first call and
+        kept, so a run's validate and variants probes share one."""
         if self._bucket is None:
             from ..ops.index import bucket_index
 

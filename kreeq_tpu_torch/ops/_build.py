@@ -39,7 +39,8 @@ _SIGNATURES = {
                     _P],
     "kq_probe_select": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
                         _P, _P, _P],
-    "kq_probe_sorted": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P],
+    "kq_probe_sorted": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P,
+                        _P],
 }
 
 _lib = None

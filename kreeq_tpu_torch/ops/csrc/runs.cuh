@@ -1,7 +1,7 @@
 // Shared device code of the run kernels (count_runs.cu, merge_sorted.cu)
 // and the probes (probe_qv.cu, probe_select.cu, probe_sorted.cu): the key
-// and counter conventions, binary search, the search through a table's
-// bucket directory, the probes' counter selection, a block-wide scan,
+// and counter conventions, the search through a table's bucket
+// directory, the probes' counter selection, a block-wide scan,
 // the one-block scan of per-tile counts that gives
 // each tile its first output row, the asynchronous shared-memory copy
 // and the SENTINEL fill of an output's tail.
@@ -28,16 +28,6 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int SCAN_THREADS = 1024;
 
 inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
-
-__device__ __forceinline__ int64_t lower_bound(const int64_t* a, int64_t n,
-                                               int64_t key) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    int64_t mid = lo + ((hi - lo) >> 1);
-    if (a[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
 
 // Keys of a bucket read in one round trip by bucket_find.
 constexpr int BUCKET_SCAN = 8;

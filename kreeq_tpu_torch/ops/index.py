@@ -8,8 +8,9 @@ in the port's biased int64 keys (u64 ^ 2^63, constants.py) that is
 `(uint64)(key ^ INT64_MIN) >> shift`.  `starts[b]` is the first table
 row whose key lies in bucket b or later, so the rows of bucket b are
 `[starts[b], starts[b + 1])`, and a key that the table holds sits
-there.  The probes of ops/csrc/probe_qv.cu and probe_select.cu read two
-entries of the directory and search that range only.
+there.  The probes of ops/csrc/probe_qv.cu, probe_select.cu and
+probe_sorted.cu read two entries of the directory and search that range
+only.
 
 Every entry is capped at the first SENTINEL row, so a SENTINEL tail
 lies in no bucket.  The directory is built once per table
@@ -26,8 +27,9 @@ from ..constants import KEY_BIAS, SENTINEL
 
 # The directory's entries are int64 (row counts pass 2^31 in later
 # slices), 8 B each: 2^22 buckets are 32 MB, inside the H100's 50 MB
-# L2, and about 6 rows a bucket at 24.8M rows.  22 bits probed faster
-# than 20 and 21 on the H100 (PERF.md).
+# L2, and about 6 rows a bucket at 24.8M rows.  Each of the three
+# probes ran at 22 bits as fast as at 20 and 21, or faster, on the H100
+# (PERF.md).
 MAX_BITS = 22
 
 

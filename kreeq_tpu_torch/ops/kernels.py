@@ -14,6 +14,10 @@ the kernels.
   probe_qv_cuda    <- csrc/probe_qv.cu      (TPU: _probe_kernel_ind)
   probe_select_cuda <- csrc/probe_select.cu (TPU: _probe_kernel_sel2)
   probe_sorted_cuda <- csrc/probe_sorted.cu (TPU: _probe_kernel)
+
+The three probes search through the table's bucket directory
+(ops/index.py, `KmerTable.bucket_index`), which their callers pass on
+CUDA; without it they raise.
 """
 
 from __future__ import annotations
@@ -155,9 +159,16 @@ def _check_index(name: str, index, tkeys) -> tuple:
     if nb < 1 or nb & (nb - 1) or not 0 <= shift <= 64 - bits:
         raise ValueError(f"{name}: not a bucket directory: {nb} buckets, "
                          f"shift {shift}")
-    if tkeys.data_ptr() % 16:
-        raise ValueError(f"{name}: table keys must be 16-byte aligned")
+    _check_aligned(name, tkeys=tkeys)
     return starts, nb, int(shift)
+
+
+def _check_aligned(name: str, **tensors: torch.Tensor) -> None:
+    """Raise unless each tensor starts on 16 bytes: the kernels read
+    (and write) it in 16-byte loads."""
+    for what, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be 16-byte aligned")
 
 
 def probe_qv_cuda(tkeys, tcov, tfw, tbw, qkeys, qctx, lead: int, hi: int,
@@ -220,17 +231,20 @@ def probe_select_cuda(tkeys, tcov, tfw, tbw, qkeys, qctx, index=None):
     return found, cov, right, left
 
 
-def probe_sorted_cuda(tkeys, tcov, tfw, tbw, qkeys):
+def probe_sorted_cuda(tkeys, tcov, tfw, tbw, qkeys, index=None):
     """(found, cov, fw, bw) per query, in query order (see
     kmers.probe_sorted for the contract).  CUDA tensors: the
-    probe_sorted kernel."""
+    probe_sorted kernel, which searches through `index`, the table's
+    bucket directory (starts, shift) of ops/index.py; CPU tensors
+    ignore it."""
     tab = (tkeys, tcov, tfw, tbw)
     if not _on_cuda("probe_sorted", *tab, qkeys):
         return K.probe_sorted(*tab, qkeys)
     from ._build import library
 
     lib = library()
-    t = _check_table("probe_sorted table", *tab)
+    _check_table("probe_sorted table", *tab)
+    starts, nb, shift = _check_index("probe_sorted", index, tkeys)
     q = qkeys.shape[0]
     _check("probe_sorted qkeys", qkeys, torch.int64, (q,))
     dev = qkeys.device
@@ -238,9 +252,11 @@ def probe_sorted_cuda(tkeys, tcov, tfw, tbw, qkeys):
     cov = torch.empty(q, dtype=torch.int64, device=dev)
     fw = torch.empty((q, 4), dtype=torch.int64, device=dev)
     bw = torch.empty((q, 4), dtype=torch.int64, device=dev)
+    # a row's fw and bw, and each query's, move as 16-byte halves
+    _check_aligned("probe_sorted", tfw=tfw, tbw=tbw, fw=fw, bw=bw)
     if q == 0:  # nothing to probe: no launch, so no count
         return found, cov, fw, bw
-    _launch("probe_sorted", lib.kq_probe_sorted, *_ptrs(*tab), t,
-            qkeys.data_ptr(), q, *_ptrs(found, cov, fw, bw))
+    _launch("probe_sorted", lib.kq_probe_sorted, *_ptrs(*tab, starts), nb,
+            shift, qkeys.data_ptr(), q, *_ptrs(found, cov, fw, bw))
     LAUNCHES["probe_sorted"] += 1
     return found, cov, fw, bw

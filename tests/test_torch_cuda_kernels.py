@@ -3,10 +3,11 @@ on edge cases: empty input, all-SENTINEL input, one key repeated 10^6
 times, runs of every length up to three count tiles at every offset
 across a tile seam, equal merge pairs on every merge tile seam, A == B,
 1 row against 10^6, saturation, k = 32, SENTINEL queries and the
-per-position sentinels of the variants scan; for the two validate
-probes every bits of the bucket directory's size rule, k = 4, a bucket
-of 10^5 rows, queries on every bucket's first key and the key before
-it, counters of 2^31 and above, and a call without the directory; and
+per-position sentinels of the variants scan; for the three probes
+every bits of the bucket directory's size rule, k = 4, a bucket of
+10^5 rows, queries on every bucket's first key and the key before it,
+counters of 2^31 and above, and a call without the directory (and for
+the generic probe misaligned rows); and
 the subgraph searches' neighbour scan (plain torch ops) on the card
 against the CPU.  Needs a
 CUDA device (the `gpu` marker); run on the card with
@@ -474,15 +475,30 @@ def test_probe_select_matches_plain(cuda, k):
         _select_both(stab, sq, sctx, index)
 
 
-@pytest.mark.parametrize("k", [21, 32])
+def _sorted_both(tab, qkeys, index):
+    """probe_sorted_cuda against the plain version; returns the plain
+    result."""
+    from kreeq_tpu_torch.ops import kmers as K
+    from kreeq_tpu_torch.ops.kernels import probe_sorted_cuda
+
+    want = K.probe_sorted(*tab, qkeys)
+    _same(probe_sorted_cuda(*tab, qkeys, index), want)
+    return want
+
+
+@pytest.mark.parametrize("k", [21, 32, 4])
 def test_probe_sorted_matches_plain(cuda, k):
-    """The generic probe on the variants scan's queries (at k = 32 the
-    per-position sentinels of invalid windows, which are searched and
-    never found), SENTINEL queries, random keys; a table of random keys
-    and counters up to 2^32 - 1; an empty table; no query."""
+    """The generic probe on the variants scan's queries (their per-position sentinels lie past the directory at k <
+    32; at k = 32 they are searched and never found), SENTINEL queries
+    and random keys, at every bits of the directory's size rule; a
+    table of random keys and counters up to 2^32 - 1; on a table with a
+    poly-A bucket of 10^5 rows, queried on each bucket's first key and
+    the key before it; an empty table with its own directory; no query;
+    and a CUDA call without the directory, which raises."""
     from kreeq_tpu_torch.constants import SENTINEL
     from kreeq_tpu_torch.core.variants import _extract_sentinel
     from kreeq_tpu_torch.ops import kmers as K
+    from kreeq_tpu_torch.ops.index import bucket_index
     from kreeq_tpu_torch.ops.kernels import probe_sorted_cuda
 
     rng = np.random.default_rng(k + 2)
@@ -496,22 +512,55 @@ def test_probe_sorted_matches_plain(cuda, k):
     asm[rng.integers(0, asm.shape[0], 50)] = 4
     skeys, _sisfw, svalid = _extract_sentinel(torch.from_numpy(asm).to(cuda),
                                               k)
+    assert not bool(svalid.all())
     qkeys = torch.cat([skeys, torch.full((7,), SENTINEL, device=cuda),
                        torch.from_numpy(rng.integers(
                            -(1 << 63), SENTINEL, 1000,
                            dtype=np.int64)).to(cuda)])
-    got = probe_sorted_cuda(*tab, qkeys)
-    want = K.probe_sorted(*tab, qkeys)
-    assert bool(want[0].any()) and bool(want[2].any())
-    assert not bool(got[0][:skeys.shape[0]][~svalid].any())
-    _same(got, want)
-
+    for bits in [None] + _rule_bits(k):
+        want = _sorted_both(tab, qkeys, bucket_index(tab[0], k, bits))
+        assert bool(want[0].any()) and bool(want[2].any())
+        assert not bool(want[0][:skeys.shape[0]][~svalid].any())
+    index = bucket_index(tab[0], k)
+    for q in (qkeys, qkeys[:0]):
+        with pytest.raises(ValueError, match="bucket directory"):
+            probe_sorted_cuda(*tab, q)
+    empty = tuple(t[:0] for t in tab)
+    _sorted_both(empty, qkeys, bucket_index(empty[0], k))
+    _same(probe_sorted_cuda(*tab, qkeys[:0], index),
+          K.probe_sorted(*tab, qkeys[:0]))
+    if k < 21:
+        return
     rtab = _table(rng, 300_000, cuda)
     rq = torch.cat([rtab[0][::3], rtab[0][1::7] + 1])
-    _same(probe_sorted_cuda(*rtab, rq), K.probe_sorted(*rtab, rq))
-    empty = tuple(t[:0] for t in tab)
-    _same(probe_sorted_cuda(*empty, qkeys), K.probe_sorted(*empty, qkeys))
-    _same(probe_sorted_cuda(*tab, qkeys[:0]), K.probe_sorted(*tab, qkeys[:0]))
+    _sorted_both(rtab, rq, bucket_index(rtab[0], 32))
+    stab, u64 = _skewed_table(rng, k, cuda)
+    for bits in (None, 8, 21):
+        index = bucket_index(stab[0], k, bits)
+        assert int((index[0][1:] - index[0][:-1]).max()) >= 100_000
+        sq, _sctx = _skewed_queries(rng, k, u64, index[1], cuda)
+        want = _sorted_both(stab, sq, index)
+        assert bool(want[0].any()) and bool(want[3].any())
+
+
+def test_probe_sorted_refuses_misaligned_rows(cuda):
+    """A table's fw and bw rows are read as 16-byte halves: a view that
+    starts 8 bytes into its storage raises."""
+    from kreeq_tpu_torch.ops.index import bucket_index
+    from kreeq_tpu_torch.ops.kernels import probe_sorted_cuda
+
+    tab = (torch.arange(3, dtype=torch.int64, device=cuda),
+           torch.ones(3, dtype=torch.int64, device=cuda),
+           torch.ones((3, 4), dtype=torch.int64, device=cuda),
+           torch.ones((3, 4), dtype=torch.int64, device=cuda))
+    qkeys = torch.arange(5, dtype=torch.int64, device=cuda)
+    index = bucket_index(tab[0], 21)
+    odd = torch.zeros(13, dtype=torch.int64, device=cuda)[1:].view(3, 4)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="tfw must be 16-byte aligned"):
+        probe_sorted_cuda(tab[0], tab[1], odd, tab[3], qkeys, index)
+    with pytest.raises(ValueError, match="tbw must be 16-byte aligned"):
+        probe_sorted_cuda(tab[0], tab[1], tab[2], odd, qkeys, index)
 
 
 def test_empty_probes_count_no_launch(cuda):
@@ -533,7 +582,7 @@ def test_empty_probes_count_no_launch(cuda):
     assert [t.shape[0] for t in (found, cov, right, left)] == [0] * 4
     sums = kernels.probe_qv_cuda(*tab, qkeys, qctx, 0, 5, 0, index)
     assert sums.tolist() == [0, 0]
-    found, cov, fw, bw = kernels.probe_sorted_cuda(*tab, qkeys)
+    found, cov, fw, bw = kernels.probe_sorted_cuda(*tab, qkeys, index)
     assert [tuple(t.shape) for t in (found, cov, fw, bw)] == [
         (0,), (0,), (0, 4), (0, 4)]
     assert kernels.LAUNCHES["probe_select"] == 0

@@ -1,9 +1,11 @@
 """PyTorch port, the bucket directory of a sorted table (ops/index.py):
 its starts equal the JAX package's build_bucket_index at the same bits,
 capped at the real row count as the JAX table's _build_bucket caps them;
-every key's row lies inside its bucket, the invariant the probe_qv and
-probe_select kernels rely on; a table builds it once, and only for the
-card.  Inputs come from numpy with a seed; every comparison is exact."""
+every key's row lies inside its bucket, the invariant the probe_qv,
+probe_select and probe_sorted kernels rely on, also for every kind of
+query the generic probe is sent; a table builds it once, and only for
+the card: on the CPU, validation and the table's batched probes build
+none.  Inputs come from numpy with a seed; every comparison is exact."""
 
 import io
 
@@ -240,3 +242,131 @@ def test_cpu_validate_builds_no_directory(monkeypatch, need_tracks):
     assert dbg.tot_kcount == kcount
     assert (dbg.tot_missing, dbg.tot_edge_missing) == tuple(want.tolist())
     assert 0 < dbg.tot_missing < kcount
+
+
+def _jax_probe(table_u64, qkeys):
+    """The JAX package's probe_sorted of port queries against a table in
+    its dtypes: (found, cov, fw, bw) as numpy."""
+    import jax.numpy as jnp
+
+    from kreeq_tpu.ops.kmers import probe_sorted
+
+    got = probe_sorted(*(jnp.asarray(a) for a in table_u64),
+                       jnp.asarray(keys_to_u64(qkeys.numpy())))
+    return tuple(np.asarray(a) for a in got)
+
+
+def _generic_queries(rng, k, n=3000):
+    """What the generic probe is sent: the variants scan's keys of an
+    assembly with N and IUPAC runs (valid keys and per-position
+    sentinels), the subgraph rounds' canonical neighbours of its keys,
+    SENTINEL and random int64.  Returns (queries, per-position sentinel
+    mask, the assembly's valid keys)."""
+    from kreeq_tpu_torch.core.variants import _extract_sentinel
+    from kreeq_tpu_torch.ops.frontier import neighbors8
+
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    codes[rng.integers(0, n, 30)] = 4
+    codes[n // 2:n // 2 + 50] = 4
+    keys, _isfw, valid = _extract_sentinel(torch.from_numpy(codes), k)
+    nbrs = neighbors8(keys[valid][::5], k).reshape(-1)
+    extra = torch.cat([nbrs, torch.full((4,), SENTINEL),
+                       torch.from_numpy(rng.integers(
+                           -(1 << 63), SENTINEL, 500, dtype=np.int64))])
+    sentinel = torch.cat([~valid, torch.zeros(extra.shape[0], dtype=bool)])
+    return torch.cat([keys, extra]), sentinel, keys[valid]
+
+
+@pytest.mark.parametrize("k", [21, 31, 32])
+def test_generic_probe_queries_lie_in_their_bucket(k):
+    """The invariant the generic probe's bucket search relies on, for
+    every kind of query its callers send: a query lies past the
+    directory (bucket_of >= nb, so it is not searched) or, where the
+    table holds it (the JAX package's probe_sorted finds it), its row
+    lies in [starts[b], starts[b + 1]).  So the search of one bucket
+    finds exactly what the JAX probe finds.  At k < 32 the per-position
+    sentinels lie past the directory; at k = 32 they lie inside it and
+    are never found."""
+    from kreeq_tpu_torch.ops.index import bucket_bits, bucket_index, bucket_of
+
+    rng = np.random.default_rng(40 + k)
+    qkeys, sentinel, valid_keys = _generic_queries(rng, k)
+    held = keys_to_u64(valid_keys[::2].numpy())
+    table = _small_table(rng, k, 4000, held)
+    t = len(table)
+    tkeys = torch.cat([table.keys, torch.full((7,), SENTINEL)])
+    want = _jax_probe((keys_to_u64(tkeys.numpy()),
+                       *(np.concatenate([a, np.zeros((7,) + a.shape[1:],
+                                                     a.dtype)])
+                         for a in table.to_numpy()[1:])), qkeys)[0]
+    assert 0 < want.sum() < want.shape[0]
+    for bits in sorted({bucket_bits(tkeys.shape[0], k), 8, 16}):
+        starts, shift = bucket_index(tkeys, k, bits)
+        nb = starts.shape[0] - 1
+        b = bucket_of(qkeys, shift)
+        past = (b >= nb).numpy()
+        searched = ~past & (qkeys != SENTINEL).numpy()
+        row = torch.searchsorted(tkeys, qkeys)
+        bb = b.clamp(0, nb - 1)
+        lo, hi = starts[bb], starts[bb + 1]
+        inside = ((lo <= row) & (row < hi)).numpy()
+        at = tkeys[row.clamp(max=t - 1)] == qkeys
+        assert np.array_equal(searched & inside & at.numpy(), want)
+        if k < 32:
+            assert past[sentinel.numpy()].all()
+        else:
+            assert not past[sentinel.numpy()].any()
+            assert not want[sentinel.numpy()].any()
+
+
+def _probe_queries(rng, table, k):
+    """Port queries of a table: held keys, their neighbours in the key
+    order, per-position sentinels, SENTINEL, random int64."""
+    qkeys, _sentinel, _valid = _generic_queries(rng, k, 600)
+    return torch.cat([table.keys[::3], table.keys[1::7] + 1, qkeys])
+
+
+@pytest.mark.parametrize("k", [21, 32])
+def test_cpu_table_probe_builds_no_directory(monkeypatch, k):
+    """On the CPU, KmerTable.probe_device and probe run the plain probe
+    and build no directory; both equal the JAX package's probe_sorted
+    exactly."""
+    from kreeq_tpu_torch.core.table import KmerTable
+
+    rng = np.random.default_rng(50 + k)
+    table = _small_table(rng, k, 3000)
+    qkeys = _probe_queries(rng, table, k)
+    want = _jax_probe(table.to_numpy(), qkeys)
+    assert 0 < want[0].sum() < want[0].shape[0]
+
+    def refuse(self):
+        raise AssertionError("the CPU path built a bucket directory")
+
+    monkeypatch.setattr(KmerTable, "bucket_index", refuse)
+    got = table.probe_device(qkeys)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), w.astype(g.numpy().dtype))
+    for g, w in zip(table.probe(qkeys), want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert table._bucket is None
+
+
+@pytest.mark.parametrize("k", [21, 32])
+def test_probe_sorted_wrapper_on_cpu_takes_the_plain_version(k):
+    """probe_sorted_cuda on CPU tensors, given the table's directory, is
+    the plain version, equal to the JAX package's probe_sorted."""
+    from kreeq_tpu_torch.ops import kmers as K
+    from kreeq_tpu_torch.ops.index import bucket_index
+    from kreeq_tpu_torch.ops.kernels import LAUNCHES, probe_sorted_cuda
+
+    rng = np.random.default_rng(60 + k)
+    table = _small_table(rng, k, 3000)
+    qkeys = _probe_queries(rng, table, k)
+    tab = (table.keys, table.cov, table.fw, table.bw)
+    before = LAUNCHES["probe_sorted"]
+    got = probe_sorted_cuda(*tab, qkeys, bucket_index(table.keys, k))
+    assert LAUNCHES["probe_sorted"] == before
+    want = _jax_probe(table.to_numpy(), qkeys)
+    for g, p, w in zip(got, K.probe_sorted(*tab, qkeys), want):
+        assert torch.equal(g, p)
+        assert np.array_equal(g.numpy(), w.astype(g.numpy().dtype))
