@@ -64,9 +64,25 @@ non-zero and never prints the final line):
      and their host search seconds; the GFA's S and L/E lines must match
      stdout's segment and edge counts, at least 90% of the cut's k-mers
      must be blue seed nodes, and the generic probe must have launched.
-The second-to-last line is a JSON object with each kernel's launches,
-error, times, bound and shape; the last is {"ok": true, "device":
-{...}}.  Needs a CUDA device; imports no JAX.
+ 10. out of core, on phase 4's reads and assembly and phase 6's DB,
+     with KREEQ_TPU_MAX_TABLE_ROWS = 10^7 (3 windows of the
+     24,756,385-row table, held on the host) and
+     KREEQ_TPU_HOST_MERGE_ROWS = 2 * 10^7: (a) `validate -r -f` (stdout
+     equal to phase 4's; B1, B2 and B4 launched, a merge on the host),
+     (b) `-d -f -o asm.bkwig` (the DB loaded host-resident; the .bkwig
+     equal to phase 6's), (c) --detect-anomalies (the BED equal to
+     phase 8's; B5 once per window), (d) phase 8's VCF (equal), (e)
+     subgraph traversal on 100 kbp of chr2, windowed and in core
+     (equal GFA2), (f) KmerTable.merge of the DB with itself on the
+     host (equal to the in-core merge), (g) a checkpointed build of 4
+     parts killed after 2 and resumed (equal to (a)'s table); per step
+     the wall, launches, peak device memory, each window's upload (ms,
+     GB/s), directory and B4/B5 ms (CUDA events), host fold and
+     classify s, each host merge's rows and s, each checkpoint write.
+The third-to-last line is a JSON object of phase 10's records; the
+second-to-last one with each kernel's launches (and its launches in
+phase 10), error, times, bound and shape; the last is {"ok": true,
+"device": {...}}.  Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -496,7 +512,7 @@ def phase_kernels(fq: str, fa: str, device):
         (the largest merge's for the timing below)."""
 
         def __init__(self):
-            super().__init__()
+            super().__init__(device)
             self.merges = []  # (na, nb, kernel ms, bound ms)
             self.largest = None
 
@@ -535,7 +551,7 @@ def phase_kernels(fq: str, fa: str, device):
             tm.push(kernels.count_sorted_cuda(keys, edges, valid))
         return first, KmerTable(K, *tm.finalize())
 
-    first, table = build(TreeMerger())
+    first, table = build(TreeMerger(device))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     log(f"[3 kernels] ingest (parse + pack, host) {t1 - t0:.2f} s for "
@@ -763,7 +779,7 @@ def phase_end_to_end(fq, fa, read_bases, kcount, ingest_s, device):
             raise AssertionError(f"implausible QV row {row}")
     if not lines[0].startswith("DBG Summary statistics:"):
         raise AssertionError("no DB summary")
-    return launches, lines[-2:]
+    return launches, out
 
 
 def phase_cuda_vs_cpu(seed: int):
@@ -1149,6 +1165,293 @@ def phase_subgraph(tmp, device):
                 f"({st['search_s'] / st['sources'] * 1e3:.3f} ms each)")
 
 
+OOC_ROWS = 10_000_000  # phase 10's KREEQ_TPU_MAX_TABLE_ROWS
+OOC_MERGE_ROWS = 20_000_000  # phase 10's KREEQ_TPU_HOST_MERGE_ROWS
+CUT_SUBGRAPH = 100_000  # bases of chr2 in phase 10's subgraph runs
+CKPT_BATCH = 11  # chunks a checkpoint part: 4 parts of 44 chunks
+
+
+@contextlib.contextmanager
+def env(**values):
+    """The KREEQ_TPU_<name> switches set (a value) or unset (None) in
+    the block, restored after it."""
+    names = {f"KREEQ_TPU_{k}": v for k, v in values.items()}
+    old = {k: os.environ.get(k) for k in names}
+    try:
+        for k, v in names.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def ooc_report(device) -> dict:
+    """What the out-of-core path recorded since the last call
+    (core/table.OOC_STATS, core/build_ckpt.CKPT_STATS), in ms, GB/s and
+    s per window and per host merge; clears the records."""
+    import torch
+
+    from kreeq_tpu_torch.core.build_ckpt import CKPT_STATS
+    from kreeq_tpu_torch.core.table import OOC_STATS
+    from kreeq_tpu_torch.device import elapsed_ms
+
+    torch.cuda.synchronize(device)
+    st = OOC_STATS
+    probes = {}
+    for name, w, q, a, b in st["probe"]:
+        ms, n, queries = probes.get((name, w), (0.0, 0, 0))
+        probes[name, w] = (ms + elapsed_ms(a, b), n + 1, queries + q)
+    out = {
+        "uploads": [{"window": w, "rows": rows, "ms": elapsed_ms(a, b),
+                     "GB_per_s": nbytes / elapsed_ms(a, b) / 1e6}
+                    for w, rows, nbytes, a, b in st["upload"]],
+        "index_ms": [elapsed_ms(a, b) for _w, a, b in st["index"]],
+        "probes": [{"kernel": name, "window": w, "calls": n,
+                    "queries": q, "ms": ms}
+                   for (name, w), (ms, n, q) in sorted(probes.items())],
+        "host_merges": [{"rows_a": a, "rows_b": b, "rows_out": m, "s": t}
+                        for a, b, m, t in st["host_merge"]],
+        "pin": [{"bytes": b, "s": t} for b, t in st["pin"]],
+        "fold_s": list(st["fold"]), "classify_s": list(st["classify"]),
+        "ckpt_writes": [{"op": op, "name": name, "rows": rows, "s": t}
+                        for op, name, rows, t in CKPT_STATS["write"]],
+    }
+    for v in st.values():
+        v.clear()
+    CKPT_STATS["write"] = []
+    return out
+
+
+def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
+    """The out-of-core path at full table size: phase 4's reads and
+    assembly and phase 6's 24,756,385-row DB under
+    KREEQ_TPU_MAX_TABLE_ROWS = 10^7 (3 windows of about 8.25M rows) and
+    KREEQ_TPU_HOST_MERGE_ROWS = 2 * 10^7 (the JAX soak's ratio of the
+    two caps).  Each step's output must equal the in-core one; its
+    launches, per-window times, host merges and checkpoint writes go to
+    the JSON line.  Returns (launches summed over the steps, report)."""
+    import torch
+
+    from kreeq_tpu_torch.core import build_ckpt
+    from kreeq_tpu_torch.core.table import KmerTable, max_device_rows
+    from kreeq_tpu_torch.io.kreeqdb import read_kreeq
+    from kreeq_tpu_torch.ops import kernels
+
+    os.environ.pop("KREEQ_TPU_PLATFORM", None)
+    db = os.path.join(tmp, "reads.kreeq")
+    with env(MAX_TABLE_ROWS=None):
+        default_rows = max_device_rows(device)
+    report = {"card": card, "max_device_rows_default": default_rows,
+              "max_table_rows": OOC_ROWS, "host_merge_rows": OOC_MERGE_ROWS,
+              "steps": {}}
+    total = {key: 0 for key in kernels.LAUNCHES}
+    ooc_report(device)
+
+    def step(name, wall, launches, peak, **extra):
+        rec = {"wall_s": wall, "launches": launches, "peak_gib": peak,
+               **ooc_report(device), **extra}
+        report["steps"][name] = rec
+        for key, n in launches.items():
+            total[key] += n
+        merges = rec["host_merges"]
+        ups = rec["uploads"] or [{"ms": 0.0, "GB_per_s": 0.0}]
+        log(f"    ({name}) wall {wall:.2f} s, peak device memory "
+            f"{peak:.2f} GiB; launches {launches}; "
+            f"{len(rec['uploads'])} window uploads of "
+            f"{min(u['ms'] for u in ups):.2f}-{max(u['ms'] for u in ups):.2f}"
+            f" ms ({min(u['GB_per_s'] for u in ups):.2f}-"
+            f"{max(u['GB_per_s'] for u in ups):.2f} GB/s); "
+            f"{len(merges)} host merges, {sum(m['s'] for m in merges):.2f}"
+            " s in all"
+            + "".join(f"; {k} {v}" for k, v in extra.items()))
+        return rec
+
+    def windows_of(rec):
+        return sorted({u["window"] for u in rec["uploads"]})
+
+    built = []
+    plain_from_reads = KmerTable.from_reads.__func__
+
+    def keep_table(cls, *args, **kwargs):
+        built.append(plain_from_reads(cls, *args, **kwargs))
+        return built[-1]
+
+    with env(MAX_TABLE_ROWS=OOC_ROWS, HOST_MERGE_ROWS=OOC_MERGE_ROWS):
+        # (a) the build with host merges, then the windowed validate
+        KmerTable.from_reads = classmethod(keep_table)
+        try:
+            out, la, ph, wall, peak = drive(
+                ["kreeq", "validate", "-r", fq, "-f", fa, "-k", str(K)],
+                ("count", "merge", "probe_select"), "out-of-core validate",
+                device)
+        finally:
+            KmerTable.from_reads = classmethod(plain_from_reads)
+        rec = step("a", wall, la, peak, build_s=ph["build k-mer DB"],
+                   report_s=ph["report"])
+        (table,) = built
+        table._win = table._win_bucket = None  # kept on the host only
+        if out != validate_out:
+            raise AssertionError("out-of-core `validate -r -f` stdout "
+                                 "differs from phase 4's")
+        if not rec["host_merges"] or not table.on_host:
+            raise AssertionError("(a): no merge ran on the host, or the "
+                                 "table is not host-resident")
+        nwin = len(table.window_ranges())
+        if windows_of(rec) != list(range(nwin)) or nwin != 3:
+            raise AssertionError(f"(a): windows {windows_of(rec)}, "
+                                 f"expected {nwin} = 3")
+
+        # (b) the DB loaded host-resident, the track path
+        bkwig = os.path.join(tmp, "asm.ooc.bkwig")
+        _out, lb, ph, wall, peak = drive(
+            ["kreeq", "validate", "-d", db, "-f", fa, "-o", bkwig],
+            ("probe_select",), "out-of-core tracks", device)
+        rec = step("b", wall, lb, peak, load_s=ph["load k-mer DB"],
+                   validate_s=ph["validate"])
+        if len(rec["pin"]) != 1 or windows_of(rec) != list(range(nwin)):
+            raise AssertionError("(b): the DB did not load host-resident")
+        same_output(bkwig, os.path.join(tmp, "asm.bkwig"))
+
+        # (c) the anomaly scan: B5 once per window
+        anom = os.path.join(tmp, "asm.ooc.anom.bed")
+        out, lc, ph, wall, peak = drive(
+            ["kreeq", "validate", "-d", db, "-f", fa, "--detect-anomalies",
+             anom], ("probe_select", "probe_sorted"), "out-of-core anomalies",
+            device)
+        step("c", wall, lc, peak, anomalies_s=ph["detect anomalies"])
+        if lc["probe_sorted"] != nwin:
+            raise AssertionError(f"(c): {lc['probe_sorted']} probe_sorted "
+                                 f"launches for {nwin} windows")
+        if out.splitlines()[-2:] != validate_out.splitlines()[-2:]:
+            raise AssertionError("(c): QV rows differ from phase 4's")
+        same_output(anom, os.path.join(tmp, "asm.anom.bed"))
+
+        # (d) the VCF of phase 8's cut: the inverted two-pass scan
+        vcf = os.path.join(tmp, "asm.ooc.vcf")
+        _out, ld, ph, wall, peak = drive(
+            ["kreeq", "validate", "-d", db, "-f",
+             os.path.join(tmp, "chr2_1mbp.fa"), "-o", vcf],
+            ("probe_sorted",), "out-of-core variants", device)
+        step("d", wall, ld, peak, variants_s=ph["variants"])
+        if ld["probe_sorted"] != nwin:
+            raise AssertionError(f"(d): {ld['probe_sorted']} probe_sorted "
+                                 f"launches for {nwin} windows")
+        same_output(vcf, os.path.join(tmp, "asm.vcf"))
+
+    # (e) subgraph traversal on 100 kbp of chr2, windowed and in core
+    cut = os.path.join(tmp, "chr2_100kbp.fa")
+    head_fasta(fa, cut, "chr2", CUT_SUBGRAPH)
+    gfas = []
+    for windowed in (True, False):
+        gfa = os.path.join(tmp, f"sub.ooc{int(windowed)}.gfa2")
+        with env(MAX_TABLE_ROWS=OOC_ROWS if windowed else None):
+            _out, le, ph, wall, peak = drive(
+                ["kreeq", "subgraph", "-d", db, "-f", cut,
+                 "--traversal-algorithm", "traversal", "-o", gfa],
+                ("probe_sorted",), "subgraph", device)
+        if windowed:
+            step("e", wall, le, peak, search_s=ph["search"])
+        else:
+            ooc_report(device)
+        gfas.append(gfa)
+    same_output(*gfas)
+
+    # (f) KmerTable.merge of the DB with itself: spilled to the host,
+    # against the in-core merge
+    with env(MAX_TABLE_ROWS=None, HOST_MERGE_ROWS=None):
+        incore = read_kreeq(db, device)
+        want = incore.merge(incore).to_numpy()
+    with env(MAX_TABLE_ROWS=OOC_ROWS, HOST_MERGE_ROWS=OOC_MERGE_ROWS):
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        spilled = incore.merge(incore)
+        wall = time.perf_counter() - t0
+        lf = dict(kernels.LAUNCHES)
+        got = spilled.to_numpy()
+        for g, w in zip(got, want):
+            if not np.array_equal(g, w):
+                raise AssertionError("(f): the host merge differs from the "
+                                     "in-core merge")
+        if not spilled.on_host:
+            raise AssertionError("(f): the merged table is not "
+                                 "host-resident")
+        # one window's upload from the pinned rows and from a pageable
+        # copy of them, in turns
+        pageable = KmerTable(K, *(x.clone() for x in (
+            spilled.keys, spilled.cov, spilled.fw, spilled.bw)),
+            compute=device)
+        ms = {}
+        for name, t in (("pinned", spilled), ("pageable", pageable),
+                        ("pageable", pageable), ("pinned", spilled)):
+            t._win = None
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t.device_arrays(0)
+            end.record()
+            end.synchronize()
+            ms.setdefault(name, []).append(start.elapsed_time(end))
+            t._win = None
+        del pageable, spilled, incore, want, got
+        step("f", wall, lf, torch.cuda.max_memory_allocated(device) / 2**30,
+             window0_upload_ms=ms)
+
+        # (g) the checkpointed build: killed after its second part, then
+        # resumed; the same table as (a)'s
+        ckpt = os.path.join(tmp, "ckpt")
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        with env(BUILD_CKPT=ckpt, BUILD_CKPT_BATCH=CKPT_BATCH,
+                 BUILD_CKPT_CRASH_AFTER=2):
+            try:
+                KmerTable.from_reads([fq], K, device)
+            except RuntimeError as e:
+                if "fault injection" not in str(e):
+                    raise
+            else:
+                raise AssertionError("(g): the fault hook did not fire")
+        crash_s = time.perf_counter() - t0
+        parts_before = sorted(f for f in os.listdir(ckpt)
+                              if f.endswith(".keys.npy"))
+        t0 = time.perf_counter()
+        with env(BUILD_CKPT=ckpt, BUILD_CKPT_BATCH=CKPT_BATCH):
+            resumed = KmerTable.from_reads([fq], K, device)
+        resume_wall = time.perf_counter() - t0
+        lg = dict(kernels.LAUNCHES)
+        for g, w in zip(resumed.to_numpy(), table.to_numpy()):
+            if not np.array_equal(g, w):
+                raise AssertionError("(g): the resumed build differs from "
+                                     "(a)'s table")
+        with open(os.path.join(ckpt, build_ckpt.MANIFEST)) as fh:
+            recs = [json.loads(line) for line in fh]
+        parts = [r for r in recs if r["op"] == "part"]
+        if len(parts) != 4 or parts_before != ["p00000.keys.npy",
+                                               "p00001.keys.npy"]:
+            raise AssertionError(f"(g): parts {[r['name'] for r in parts]}"
+                                 f", {parts_before} before the resume")
+        step("g", crash_s + resume_wall, lg,
+             torch.cuda.max_memory_allocated(device) / 2**30,
+             crash_run_s=crash_s, resume_run_s=resume_wall,
+             replay_s=build_ckpt.CKPT_STATS["resume_s"])
+        del resumed, table, built[:]
+        shutil.rmtree(ckpt)
+    log(f"[10 out of core] caps {OOC_ROWS} rows a window, host merges "
+        f"above {OOC_MERGE_ROWS} rows (default cap on this card "
+        f"{default_rows} rows); {nwin} windows; validate stdout, .bkwig, "
+        f"anomaly BED, VCF, subgraph GFA2 and the merged and resumed "
+        f"tables equal the in-core ones; launches {total}")
+    return total, report
+
+
 def _busy_s(events) -> float:
     """Seconds in which the card ran at least one kernel, copy or set,
     from the device events of a chrome trace."""
@@ -1253,7 +1556,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     start = time.perf_counter()
-    phase_card()
+    card = phase_card()
     phase_build()
     rng = np.random.default_rng(args.seed)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1266,15 +1569,19 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         res = phase_kernels(fq, fa, device)
         launches = {}
-        launches["validate"], qv_rows = phase_end_to_end(
+        launches["validate"], validate_out = phase_end_to_end(
             fq, fa, read_bases, kcount, res["ingest_s"], device)
+        qv_rows = validate_out.splitlines()[-2:]
         phase_cuda_vs_cpu(args.seed)
         launches["tracks"] = phase_db_tracks(fq, fa, tmp, qv_rows, device)
         if args.profile:
             phase_profile(fa, tmp, args.profile, device)
         launches["variants"] = phase_variants(fa, tmp, qv_rows, device)
         phase_subgraph(tmp, device)
+        ooc_launches, ooc = phase_out_of_core(fq, fa, tmp, validate_out,
+                                              card, device)
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")
+    print(json.dumps({"out_of_core": ooc}))
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -1283,7 +1590,8 @@ def main() -> int:
          "plain_ms": res[name]["plain_ms"],
          "bound_ms": res[name]["bound_ms"], "bound_by": "bytes",
          # no one PyTorch call computes any of the five (PERF.md)
-         "library_ms": None, "shape": res[name]["shape"]}
+         "library_ms": None, "shape": res[name]["shape"],
+         "ooc_launches": ooc_launches[key]}
         for name, key, src, tpu, path in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

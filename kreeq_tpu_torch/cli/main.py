@@ -24,11 +24,10 @@ from ..config import UserInput, get_file_ext
 
 VERSION = "0.1.0"
 
-# switches of the JAX package's out-of-core, resume and sharded builds
-# that the port does not honour yet; a run that sets one stops before
-# any work rather than silently ignore it
-_UNPORTED_SWITCHES = ("KREEQ_TPU_BUILD_CKPT", "KREEQ_TPU_MAX_TABLE_ROWS",
-                      "KREEQ_TPU_HOST_MERGE_ROWS", "KREEQ_TPU_FORCE_SHARDED")
+# switches of the JAX package's sharded builds that the port does not
+# honour yet; a run that sets one stops before any work rather than
+# silently ignore it
+_UNPORTED_SWITCHES = ("KREEQ_TPU_FORCE_SHARDED",)
 
 
 def _err(msg: str) -> "None":
@@ -175,14 +174,12 @@ def load_graph(ui: UserInput, device):
 
 
 def _refuse_unported_switches() -> None:
-    # only a value the JAX package acts on: FORCE_SHARDED as "1", the
-    # others when non-empty
+    # only a value the JAX package acts on: FORCE_SHARDED as "1"
     for name in _UNPORTED_SWITCHES:
-        value = os.environ.get(name, "")
-        if value == "1" if name.endswith("FORCE_SHARDED") else value:
+        if os.environ.get(name, "") == "1":
             _err(f"{name} is set, but the PyTorch port does not honour it "
-                 "yet (out-of-core, resumable and sharded builds are not "
-                 "ported). Unset it, or run the JAX package's kreeq.\n")
+                 "yet (sharded builds are not ported). Unset it, or run "
+                 "the JAX package's kreeq.\n")
 
 
 def run(argv: List[str]) -> int:

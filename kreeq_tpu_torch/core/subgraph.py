@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..constants import ITOC, keys_from_u64, keys_to_u64
+from ..device import elapsed_ms, stamp
 from ..io.sequence import Edge, Genome
 from ..native.subnode import get_module
 from ..ops.frontier import survivors
@@ -113,22 +114,6 @@ def _node_arrays(sub: Dict[int, SubNode], device):
     bw = np.array([nd.bw for nd in sub.values()], np.int64).reshape(-1, 4)
     return (torch.from_numpy(keys).to(device),
             torch.from_numpy(fw).to(device), torch.from_numpy(bw).to(device))
-
-
-def _stamp(device):
-    """A point in time on the device's own clock: a recorded CUDA event
-    on the card, the host clock elsewhere."""
-    if device.type == "cuda":
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-    return time.perf_counter()
-
-
-def _ms(a, b) -> float:
-    """Milliseconds between two _stamp()s; on the card the later event
-    must have completed."""
-    return (b - a) * 1e3 if isinstance(a, float) else a.elapsed_time(b)
 
 
 # -- extraction -------------------------------------------------------------
@@ -267,19 +252,19 @@ def traversal(dbg, sub: Dict[int, SubNode]) -> None:
     for _ in range(dbg.ui.resolved_kmer_depth()):
         if fkeys.shape[0] == 0:
             break
-        t0 = _stamp(dev)
+        t0 = stamp(dev)
         vals, _flat = survivors(fkeys, ffw, fbw, members, k, 0, dedup=True)
-        t1 = _stamp(dev)
+        t1 = stamp(dev)
         if vals.shape[0] == 0:
             break
         found, cov, fw, bw = table.probe_device(vals)
-        t2 = _stamp(dev)
+        t2 = stamp(dev)
         hit = torch.nonzero(found).squeeze(1)
         fkeys, ffw, fbw = vals[hit], fw[hit], bw[hit]
         rows = torch.cat([fkeys[:, None], cov[hit][:, None], ffw, fbw],
                          1).cpu().numpy()
-        SUBGRAPH_STATS["rounds"].append((rows.shape[0], _ms(t0, t1),
-                                         _ms(t1, t2)))
+        SUBGRAPH_STATS["rounds"].append(
+            (rows.shape[0], elapsed_ms(t0, t1), elapsed_ms(t1, t2)))
         # new keys only, so updating sub keeps its order and appends
         # the round's nodes in scan order
         _bulk_nodes(sub, keys_to_u64(rows[:, 0]), rows[:, 2:6],

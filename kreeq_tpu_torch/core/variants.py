@@ -25,8 +25,10 @@ counters of the selected branch points come back in one bulk copy, and
 the exact Fibonacci-heap search runs on u64 Python ints, as in the JAX
 package (keys.py; `KmerTable.lookup`).
 
-Not yet ported: the out-of-core scans (`_scan_windows_inverted`,
-`_scan_probe_windowed`), which need table windows.
+Against a host-resident table (out of core, KmerTable.window_ranges)
+the scan runs in two passes, the first with the table's windows outer
+(`_probe_windows_inverted`), and the anomaly scan probes its segments
+in batches (`_probe_segments`), so each window uploads once per pass.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch
 from ..constants import SENTINEL, keys_to_u64, revcom
 from .fibheap import FibonacciHeap
 from .keys import canonical, key_to_seq, next_key_bw, next_key_fw
+from .table import u32_bits, widen_u32
 
 SNV, INS, DEL, COM = "SNV", "INS", "DEL", "COM"
 
@@ -74,12 +77,14 @@ def correct_sequences(dbg) -> None:
             variants_to_gfa(dbg, seg)
 
 
-def detect_anomalies(dbg, seg) -> List[Tuple[int, int]]:
+def detect_anomalies(dbg, seg, probed=None) -> List[Tuple[int, int]]:
     """Flag positions whose k-mer is missing or whose forward edge to
     the next assembly base is absent (reference:
     src/variants.cpp:406-456 — legacy code whose output is pinned by
     testFiles/random1.anomalies.bed).  Returns merged 1-based inclusive
-    ranges of anomalous k-mer start positions."""
+    ranges of anomalous k-mer start positions.  `probed`: the table's
+    (found, cov, fw, bw) of the segment's k-mers, when the caller
+    probed them already."""
     from ..ops.kmers import kmer_positions
 
     k = dbg.k
@@ -92,7 +97,8 @@ def detect_anomalies(dbg, seg) -> List[Tuple[int, int]]:
 
     keys, isfw, _edges, valid = kmer_positions(
         torch.from_numpy(codes).to(table.device), k)
-    found, _cov, rfw, rbw = table.probe(keys)
+    found, _cov, rfw, rbw = probed if probed is not None else \
+        table.probe(keys)
     isfw = isfw.cpu().numpy()
     # non-ACGT bases are masked to code 0 inside keys; the reference's
     # hash of a code>3 base misses the DB, so an invalid k-mer is never
@@ -119,11 +125,51 @@ def detect_anomalies(dbg, seg) -> List[Tuple[int, int]]:
     return [(a + 1, b) for a, b in ranges]
 
 
+# k-mer positions a batch of the anomaly scan probes at once against a
+# host-resident table
+_ANOMALY_BATCH = 1 << 24
+
+
+def _probe_segments(dbg):
+    """{segment index: probe result} of every segment's k-mers against
+    a host-resident table, in batches of whole segments of up to
+    _ANOMALY_BATCH positions: each batch pages the table's windows
+    once, instead of once per segment."""
+    from ..ops.kmers import kmer_positions
+
+    k = dbg.k
+    segs = dbg.genome.segments
+    batches, rows = [[]], 0
+    for si, seg in enumerate(segs):
+        if len(seg) < k:
+            continue
+        n = len(seg) - k + 1
+        if batches[-1] and rows + n > _ANOMALY_BATCH:
+            batches.append([])
+            rows = 0
+        batches[-1].append(si)
+        rows += n
+    out = {}
+    for batch in batches:
+        if not batch:
+            continue
+        res = dbg.table.probe(torch.cat([kmer_positions(torch.from_numpy(
+            segs[si].codes).to(dbg.table.device), k)[0] for si in batch]))
+        lo = 0
+        for si in batch:
+            hi = lo + len(segs[si]) - k + 1
+            out[si] = tuple(x[lo:hi] for x in res)
+            lo = hi
+    return out
+
+
 def write_anomalies(dbg, out_path: str) -> None:
+    probed = (_probe_segments(dbg) if dbg.table.window_ranges() is not None
+              else {})
     with open(out_path, "w") as fh:
-        for seg, path in zip(dbg.genome.segments,
-                             _segment_paths(dbg.genome)):
-            for a, b in detect_anomalies(dbg, seg):
+        for si, (seg, path) in enumerate(zip(dbg.genome.segments,
+                                             _segment_paths(dbg.genome))):
+            for a, b in detect_anomalies(dbg, seg, probed.get(si)):
                 fh.write(f"{path}\t{a}\t{b}\n")
 
 
@@ -300,22 +346,69 @@ def dbg_to_variants(dbg, seg) -> None:
         wins.append((wa, wb, max(0, wa - lh), min(kcount, wb + rh)))
     nwin = len(wins)
 
+    ranges = dbg.table.window_ranges()
+    # against a host-resident table, pass 1: every window's probe of
+    # every scan window, table windows outer
+    parts = (_probe_windows_inverted(dbg, codes, wins, k, ranges)
+             if ranges is not None else None)
     for wi, (wa, wb, lo, hi) in enumerate(wins):
         # per-window progress is load-bearing at scale: long-running
         # CLI phases are watchdogged on output cadence
         log.verbose(f"variants window {wi + 1}/{nwin} "
                     f"[{wa}, {wb}) of {kcount}")
+        probed = None
+        if parts is not None:
+            probed = _upload_probe(parts[wi], dbg.table.device)
+            parts[wi] = None  # free as we go
         _scan_window_variants(dbg, codes, lo, hi, wa, wb, kcount, k,
-                              max_span, cutoff, cache, variants)
+                              max_span, cutoff, cache, variants, probed)
         if log.verbose_flag:
             log.verbose(f"variants window {wi + 1}/{nwin} done "
                         f"({len(variants)} positions with variants)")
     seg.variants = variants
 
 
+def _probe_windows_inverted(dbg, codes, wins, k: int, ranges):
+    """Pass 1 of the variants scan against a host-resident table (the
+    JAX _scan_windows_inverted): for each table window, outer, the
+    probe of every scan window's keys through the window's directory,
+    folded into host accumulators (found, and u32 cov, fw, bw: 37 B a
+    position); the windows' key ranges are disjoint, so at most one
+    finds a key.  Returns those accumulators per scan window, for pass
+    2 (_upload_probe, then the candidate scan and the host search of
+    _scan_window_variants).  The transfers: each table window once,
+    then each scan window's result once."""
+    table = dbg.table
+    dev = table.device
+    parts = [None] * len(wins)
+    for w in range(len(ranges)):
+        for wi, (_wa, _wb, lo, hi) in enumerate(wins):
+            cbuf = torch.from_numpy(codes[lo:hi + k - 1]).to(dev)
+            keys, _isfw, valid = _extract_sentinel(cbuf, k)
+            found, cov, fw, bw = table.probe_window(w, keys)
+            found = (found & valid).cpu().numpy()
+            vals = u32_bits(torch.cat([cov[:, None], fw, bw], 1))
+            vals = vals.cpu().numpy().view(np.uint32)
+            if parts[wi] is None:
+                parts[wi] = (found, vals)
+            else:
+                parts[wi][0][:] |= found
+                np.copyto(parts[wi][1], vals, where=found[:, None])
+    return parts
+
+
+def _upload_probe(part, device):
+    """One scan window's pass-1 accumulators as the (found, cov, fw,
+    bw) of a probe on `device`."""
+    found, vals = part
+    vals = widen_u32(torch.from_numpy(vals.view(np.int32)).to(device))
+    return (torch.from_numpy(found).to(device), vals[:, 0], vals[:, 1:5],
+            vals[:, 5:9])
+
+
 def _scan_window_variants(dbg, codes, lo: int, hi: int, wa: int, wb: int,
                           kcount: int, k: int, max_span: int, cutoff: int,
-                          cache, variants) -> None:
+                          cache, variants, probed=None) -> None:
     """One fixed window [wa, wb) of the variants scan, probing buffer
     positions [lo, hi) (core + halos).
 
@@ -327,12 +420,15 @@ def _scan_window_variants(dbg, codes, lo: int, hi: int, wa: int, wb: int,
     extracts the source, explores nothing, and stops explored=True
     with no paths.  The buffer holds exactly the bases of [lo, hi): no
     padding.  Then one bulk copy to the host of the window's keys and
-    orientations and of the core branch points' counters."""
+    orientations and of the core branch points' counters.  `probed`:
+    the window's probe result from pass 1 against a host-resident
+    table (_probe_windows_inverted); else the table is probed here."""
     table = dbg.table
     nbase = hi - lo + k - 1  # codes feeding positions [lo, hi)
     cbuf = torch.from_numpy(codes[lo:lo + nbase]).to(table.device)
     keys, isfw, valid = _extract_sentinel(cbuf, k)
-    found, covs, fws, bws = table.probe_device(keys)
+    found, covs, fws, bws = (probed if probed is not None
+                             else table.probe_device(keys))
     search = _candidate_scan(keys, isfw, found & valid, covs, fws, bws,
                              cutoff, k)[2]
     search[:wa - lo] = False  # core positions only

@@ -12,6 +12,7 @@ finds none stops.
 from __future__ import annotations
 
 import os
+import time
 
 import torch
 
@@ -29,3 +30,19 @@ def resolve_device() -> torch.device:
             "no CUDA device is available; set KREEQ_TPU_PLATFORM=cpu to "
             "run the plain PyTorch versions on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def stamp(device: torch.device):
+    """A point in time on the device's own clock: a recorded CUDA event
+    on the card, the host clock elsewhere."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def elapsed_ms(a, b) -> float:
+    """Milliseconds between two stamp()s; on the card the later event
+    must have completed."""
+    return (b - a) * 1e3 if isinstance(a, float) else a.elapsed_time(b)

@@ -33,7 +33,7 @@ Everything here is host numpy on the files' u64 keys: hashing,
 placement and `key % mapCount` work on u64, so keys cross to the port's
 int64 form only at the KmerTable boundary (KmerTable.to_numpy on write;
 keys_from_u64 on read, after which the rows are sorted on the table's
-device).
+device, or on the host for a table above the device's row cap).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ..constants import keys_from_u64
-from ..core.table import MAP_COUNT, KmerTable
+from ..core.table import MAP_COUNT, KmerTable, max_device_rows
 
 PHMAP_VERSION = 0xFFFFFFFFFFFFFFF5
 SUBMAP_COUNT = 256
@@ -110,8 +110,10 @@ def _read_map_file(path: str, wide: bool):
 
 
 def read_kreeq(db_path: str, device) -> KmerTable:
-    """Load a `.kreeq` DB into a KmerTable on `device` (u8 + high-copy
-    merged, rows sorted by key on the device)."""
+    """Load a `.kreeq` DB into a KmerTable probed on `device` (u8 +
+    high-copy merged).  The rows are sorted by key on the device, or,
+    above max_device_rows(device) rows, on the host, and the table then
+    stays there (KmerTable.host_form)."""
     k, map_count = read_index(db_path)
     all_keys = []
     all_vals = []
@@ -140,7 +142,12 @@ def read_kreeq(db_path: str, device) -> KmerTable:
     if missing.size:
         raise ValueError(
             f"int32 map missing 255 value from int8 map: key {missing[0]}")
-    # keys are unique, so any sort order of them is the table's order;
+    # keys are unique, so any sort order of them is the table's order
+    if keys.shape[0] > max_device_rows(device):
+        keys, order = torch.sort(torch.from_numpy(keys_from_u64(keys)))
+        vals = vals[order.numpy()]
+        return KmerTable.host_form(k, keys.numpy(), vals[:, 8],
+                                   vals[:, 0:4], vals[:, 4:8], device)
     # counters cross as int32 bit patterns (u32 values) and widen there
     keys, order = torch.sort(torch.from_numpy(keys_from_u64(keys)).to(device))
     vals = torch.from_numpy(vals.view(np.int32)).to(device)[order]

@@ -179,6 +179,16 @@ def probe_sorted(tkeys, tcov, tfw, tbw, qkeys):
             torch.where(hit, tfw[row], 0), torch.where(hit, tbw[row], 0))
 
 
+def combine_probe(f1, c1, fw1, bw1, f2, c2, fw2, bw2):
+    """Fold the probe results of two table windows (counterpart of the
+    JAX combine_probe).  The windows' key ranges are disjoint, so at
+    most one side finds any query; the first that found it gives its
+    counters (both sides hold zeros where they found nothing)."""
+    hit = f1[:, None]
+    return (f1 | f2, torch.where(f1, c1, c2), torch.where(hit, fw1, fw2),
+            torch.where(hit, bw1, bw2))
+
+
 # ---------------------------------------------------------------------------
 # host-side packing
 

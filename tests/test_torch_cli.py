@@ -300,14 +300,11 @@ def test_union_fatal_paths_match_jax(tmp_path, both, capsys, ks, msg):
         assert capsys.readouterr().err == msg
 
 
-@pytest.mark.parametrize("name", ["KREEQ_TPU_BUILD_CKPT",
-                                  "KREEQ_TPU_MAX_TABLE_ROWS",
-                                  "KREEQ_TPU_HOST_MERGE_ROWS",
-                                  "KREEQ_TPU_FORCE_SHARDED"])
+@pytest.mark.parametrize("name", ["KREEQ_TPU_FORCE_SHARDED"])
 def test_unported_switch_is_refused(tmp_path, monkeypatch, capsys, name):
-    """The JAX package's out-of-core, resume and sharding switches are
-    not ported: a run that sets one exits non-zero before any work and
-    names the switch, instead of ignoring it."""
+    """The JAX package's sharding switch is not ported: a run that sets
+    it exits non-zero before any work and names the switch, instead of
+    ignoring it."""
     from kreeq_tpu_torch.cli.main import run
 
     reads, asm = _write_inputs(tmp_path, 0)
@@ -320,6 +317,34 @@ def test_unported_switch_is_refused(tmp_path, monkeypatch, capsys, name):
     err = capsys.readouterr()
     assert name in err.err and "does not honour" in err.err
     assert err.out == "" and not db.exists()
+
+
+@pytest.mark.parametrize("name,value,ext", [
+    ("KREEQ_TPU_MAX_TABLE_ROWS", "300", "bkwig"),
+    ("KREEQ_TPU_MAX_TABLE_ROWS", "300", "vcf"),
+    ("KREEQ_TPU_HOST_MERGE_ROWS", "800", "kreeq"),
+    ("KREEQ_TPU_BUILD_CKPT", "ckpt", "kreeq"),
+])
+def test_ported_switch_matches_jax(tmp_path, both, monkeypatch, name, value,
+                                   ext):
+    """The out-of-core and resume switches, set as the JAX package takes
+    them: `validate -r -f -o x.ext` prints and writes what the JAX CLI
+    does under the same switch (and BUILD_CKPT leaves the same
+    checkpoint directory)."""
+    jax_run, run = both
+    rp, ap = _write_inputs(tmp_path, 0)
+    outs = []
+    for pkg, fn in (("jax", jax_run), ("port", run)):
+        ckpt = str(tmp_path / f"{pkg}.ckpt")
+        monkeypatch.setenv(name, ckpt if name.endswith("CKPT") else value)
+        out = str(tmp_path / f"{pkg}.{ext}")
+        outs.append((out, _stdout(fn, ["kreeq", "validate", "-r", rp, "-f",
+                                       ap, "-o", out]), ckpt))
+    (want, want_stdout, want_ckpt), (got, got_stdout, got_ckpt) = outs
+    assert got_stdout == want_stdout and "DBG Summary" in want_stdout
+    _same_output(got, want)
+    assert os.path.isdir(want_ckpt) == name.endswith("CKPT")
+    _same_output(got_ckpt, want_ckpt)
 
 
 @pytest.mark.parametrize("name,value", [

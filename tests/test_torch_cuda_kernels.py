@@ -9,7 +9,8 @@ every bits of the bucket directory's size rule, k = 4, a bucket of
 counters of 2^31 and above, and a call without the directory (and for
 the generic probe misaligned rows); and
 the subgraph searches' neighbour scan (plain torch ops) on the card
-against the CPU.  Needs a
+against the CPU; and B4 and B5 on the uploaded windows of a
+host-resident table, each with its own directory.  Needs a
 CUDA device (the `gpu` marker); run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m gpu
@@ -588,6 +589,66 @@ def test_empty_probes_count_no_launch(cuda):
     assert kernels.LAUNCHES["probe_select"] == 0
     assert kernels.LAUNCHES["probe_qv"] == 0
     assert kernels.LAUNCHES["probe_sorted"] == 0
+
+
+@pytest.mark.parametrize("k", [21, 32])
+def test_window_probes_match_plain(cuda, monkeypatch, k):
+    """B4 and B5 on each uploaded window of a host-resident table, with
+    that window's own directory, exact against the plain versions on
+    the window's rows: on queries of every window, on queries that all
+    lie below or above the window's key range, and with counters of
+    2^31 and above; then the windowed probe_device on the card against
+    the plain probe of the whole table, and windows that tile it."""
+    from kreeq_tpu_torch.constants import keys_from_u64
+    from kreeq_tpu_torch.core.table import KmerTable
+    from kreeq_tpu_torch.ops import kernels
+    from kreeq_tpu_torch.ops import kmers as K
+    from kreeq_tpu_torch.ops import validate as V
+
+    rng = np.random.default_rng(k + 40)
+    n = 300_000
+    u64 = np.unique(rng.integers(0, 1 << (2 * k - 1), n, dtype=np.uint64)
+                    * np.uint64(2))
+    n = u64.shape[0]
+    keys = keys_from_u64(u64)
+    cov = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    fw, bw = (rng.integers(0, 1 << 32, (n, 4), dtype=np.uint64)
+              .astype(np.uint32) for _ in range(2))
+    monkeypatch.setenv("KREEQ_TPU_MAX_TABLE_ROWS", str(n // 3 + 1))
+    table = KmerTable.host_form(k, keys, cov, fw, bw, cuda)
+    ranges = table.window_ranges()
+    assert len(ranges) == 3 and ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    full = tuple(torch.from_numpy(x.astype(np.int64)) for x in
+                 (keys, cov, fw, bw))
+    per_window = [torch.from_numpy(np.concatenate([
+        keys[lo:hi][rng.integers(0, hi - lo, 20_000)],
+        keys[lo:hi][rng.integers(0, hi - lo, 5_000)] + 1])).to(cuda)
+        for lo, hi in ranges]
+    qall = torch.cat(per_window)
+    ctx = torch.from_numpy(rng.integers(0, 9, (qall.shape[0], 2))
+                           .astype(np.uint8)).to(cuda)
+    qctx = ctx[:, 0] | (ctx[:, 1] << 4)
+    for w, (lo, hi) in enumerate(ranges):
+        tab = table.device_arrays(w)
+        index = table.bucket_index(w)
+        plain = tuple(x[lo:hi].to(cuda) for x in full)
+        _same(tab, plain)
+        others = [q for v, q in enumerate(per_window) if v != w]
+        for q, c in ((qall, qctx), (others[0], qctx[:others[0].shape[0]]),
+                     (others[1], qctx[:others[1].shape[0]])):
+            want = K.probe_sorted(*plain, q)
+            _same(kernels.probe_sorted_cuda(*tab, q, index), want)
+            _same(kernels.probe_select_cuda(*tab, q, c, index),
+                  V.probe_select(*plain, q, c))
+            if q is not qall:  # a window above or below every query
+                assert not bool(want[0].any())
+    kernels.reset_launches()
+    got = table.probe_device(qall)
+    assert kernels.LAUNCHES["probe_sorted"] == len(ranges)
+    want = K.probe_sorted(*full, qall.cpu())
+    _same(got, want)
+    assert int(want[0].sum()) == 60_000
 
 
 @pytest.mark.parametrize("k", [21, 31, 32])
