@@ -79,10 +79,28 @@ non-zero and never prints the final line):
      the wall, launches, peak device memory, each window's upload (ms,
      GB/s), directory and B4/B5 ms (CUDA events), host fold and
      classify s, each host merge's rows and s, each checkpoint write.
-The third-to-last line is a JSON object of phase 10's records; the
-second-to-last one with each kernel's launches (and its launches in
-phase 10), error, times, bound and shape; the last is {"ok": true,
-"device": {...}}.  Needs a CUDA device; imports no JAX.
+ 11. several ranks, on phase 4's reads cut into 4 FASTQ files of
+     unequal size, phase 4's assembly and phase 6's DB: (a) `validate
+     -r r0.fq r1.fq r2.fq r3.fq -f asm.fa` as 2 ranks sharing the card
+     over gloo (this script's --rank-worker processes, launched with
+     KREEQ_TPU_COORDINATOR, _NUM_PROCESSES, _PROCESS_ID; rank 0's stdout
+     equal to phase 4's, rank 1's empty), (b) build_table_distributed
+     in a 1-rank NCCL group in this process (equal to phase 6's DB),
+     and again under phase 10's caps (gathered into host memory
+     through card buffers, the table on the host, equal too),
+     (c) full_pipeline across the 2 ranks on a full validate window of
+     chr1 (sums equal to B3's on one card; every B1 and B5 call exact
+     against its plain version), (d) merge_sharded of the DB with
+     itself (equal to phase 10 (f)'s in-core merge; B2 exact), (e) (a)
+     under phase 10's caps (the table gathered into host memory, as
+     it is only there); per rank the wall, chunks and rounds, records
+     and bytes routed, route and gather ms (CUDA events), where the
+     gather went, launches, peak device memory and backend.
+The fourth-to-last line is a JSON object of phase 10's records, the
+third-to-last one of phase 11's; the second-to-last one with each
+kernel's launches (and its launches in phases 10 and 11), error, times,
+bound and shape; the last is {"ok": true, "device": {...}}.  Needs a
+CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -90,11 +108,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gzip
+import hashlib
 import io
 import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -1368,6 +1388,7 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
     with env(MAX_TABLE_ROWS=None, HOST_MERGE_ROWS=None):
         incore = read_kreeq(db, device)
         want = incore.merge(incore).to_numpy()
+    report["merge_digest"] = table_digest(want)  # phase 11 (d)'s reference
     with env(MAX_TABLE_ROWS=OOC_ROWS, HOST_MERGE_ROWS=OOC_MERGE_ROWS):
         kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats(device)
@@ -1449,6 +1470,463 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
         f"{default_rows} rows); {nwin} windows; validate stdout, .bkwig, "
         f"anomaly BED, VCF, subgraph GFA2 and the merged and resumed "
         f"tables equal the in-core ones; launches {total}")
+    return total, report
+
+
+# ---------------------------------------------------------------------------
+# phase 11: several ranks
+
+RANKS = 2  # phase 11's ranks, sharing the one card over gloo
+# records of phase 11's 4 FASTQ files: rank 0 reads files 0 and 2, rank
+# 1 files 1 and 3, so rank 0 counts more chunks and rank 1 enters the
+# last rounds with empty ones
+SHARD_SHARES = (0.4, 0.3, 0.2, 0.1)
+PIPE_CHUNK = 1 << 25  # bases of each rank's read chunk in phase 11 (c)
+
+
+def table_digest(arrays) -> str:
+    """sha256 of a table's (keys, cov, fw, bw) in the JAX package's
+    dtypes."""
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(memoryview(a).cast("B"))
+    return h.hexdigest()
+
+
+def split_fastq(fq: str, tmp: str) -> list:
+    """phase 4's reads as 4 FASTQ files of SHARD_SHARES of its records
+    (make_inputs writes records of one length)."""
+    row = 3 + READ_LEN + 3 + READ_LEN + 1
+    nrec, rest = divmod(os.path.getsize(fq), row)
+    if rest:
+        raise AssertionError(f"{fq} is not made of {row}-byte records")
+    cuts = [0]
+    for share in SHARD_SHARES[:-1]:
+        cuts.append(cuts[-1] + int(nrec * share))
+    cuts.append(nrec)
+    files = []
+    with open(fq, "rb") as src:
+        for i in range(len(SHARD_SHARES)):
+            path = os.path.join(tmp, f"r{i}.fq")
+            left = (cuts[i + 1] - cuts[i]) * row
+            with open(path, "wb") as dst:
+                while left:
+                    buf = src.read(min(left, 64 << 20))
+                    dst.write(buf)
+                    left -= len(buf)
+            files.append(path)
+    return files
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(name: str, job: dict, tmp: str, **switches):
+    """RANKS processes of this script's --rank-worker mode, launched as
+    the port's CLI is (KREEQ_TPU_COORDINATOR on a free local port,
+    _NUM_PROCESSES, _PROCESS_ID) with the KREEQ_TPU_<name> `switches`;
+    every one is waited for, and killed if the run fails.  Returns per
+    rank (stdout, stderr, the worker's result, wall s from the spawn)."""
+    port = free_port()
+    procs, files = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(RANKS):
+            base = os.path.join(tmp, f"{name}.rank{r}")
+            with open(base + ".json", "w") as fh:
+                json.dump({**job, "out": base + ".res.json"}, fh)
+            environ = {**os.environ,
+                       "KREEQ_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                       "KREEQ_TPU_NUM_PROCESSES": str(RANKS),
+                       "KREEQ_TPU_PROCESS_ID": str(r),
+                       **{f"KREEQ_TPU_{k}": str(v)
+                          for k, v in switches.items()}}
+            out = open(base + ".out", "wb")
+            err = open(base + ".err", "wb")
+            files += [out, err]
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-worker",
+                 base + ".json"], env=environ, stdout=out, stderr=err))
+        walls = [None] * len(procs)
+        while None in walls:
+            for r, p in enumerate(procs):
+                if walls[r] is None and p.poll() is not None:
+                    walls[r] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 300:
+                raise TimeoutError(f"({name}) the ranks ran past 300 s")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fh in files:
+            fh.close()
+    runs = []
+    for r, p in enumerate(procs):
+        base = os.path.join(tmp, f"{name}.rank{r}")
+        with open(base + ".out") as fh:
+            out = fh.read()
+        with open(base + ".err") as fh:
+            err = fh.read()
+        if p.returncode != 0:
+            raise AssertionError(f"({name}) rank {r} exited {p.returncode}:"
+                                 f"\n{err[-4000:]}")
+        with open(base + ".res.json") as fh:
+            runs.append((out, err, json.load(fh), walls[r]))
+    return runs
+
+
+def build_records(err: str) -> list:
+    """The `distributed build` records a rank's --verbose stderr holds."""
+    return [json.loads(line.split("distributed build ", 1)[1])
+            for line in err.splitlines() if "distributed build " in line]
+
+
+def rank_worker(spec_path: str) -> int:
+    """One rank of phase 11: job "cli" runs the port's CLI (rank 0's
+    stdout is the CLI's); job "checks" runs (c) and (d).  Writes the
+    result, with the launches, wall and peak device memory, to the
+    job's "out" file."""
+    import torch
+
+    from kreeq_tpu_torch.ops import kernels
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    t0 = time.perf_counter()
+    if spec["kind"] == "cli":
+        from kreeq_tpu_torch.cli.main import run
+
+        from kreeq_tpu_torch.utils import log as klog
+
+        res = {"rc": run(["kreeq", *spec["argv"]])}
+        sys.stdout.flush()
+        res["launches"] = dict(kernels.LAUNCHES)
+        res["build_s"] = dict(klog._phases)["build k-mer DB"]
+    else:
+        res = rank_checks(spec)
+    res["wall_s"] = time.perf_counter() - t0
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(spec["out"], "w") as fh:
+        json.dump(res, fh)
+    return 0
+
+
+def _checked(name: str, plain, calls) -> dict:
+    """Each recorded call of a kernel wrapper held exactly against its
+    plain version on the same inputs; its shapes and CUDA-event ms."""
+    import torch
+
+    torch.cuda.synchronize()
+    shapes, ms = [], []
+    for (args, got), start, end in calls:
+        compare(name, got, plain(*args))
+        shapes.append([tuple(a.shape)[0] for a in args
+                       if isinstance(a, torch.Tensor)])
+        ms.append(start.elapsed_time(end))
+    return {"calls": len(calls), "shapes": shapes, "ms": ms,
+            "max_abs_err": 0.0}
+
+
+def rank_checks(spec: dict) -> dict:
+    """(c) full_pipeline on one PIPE_CHUNK read chunk per rank (chunk r)
+    and, on rank 0, one full validate window of chr1 (rank 1's assembly
+    chunk is empty; its share of the queries still reaches its
+    sub-table); (d) merge_sharded of phase 6's DB with itself.  Every
+    B1, B2 and B5 call is held against its plain version."""
+    import torch
+    import torch.distributed as dist
+
+    from kreeq_tpu_torch.constants import seq_to_codes
+    from kreeq_tpu_torch.device import resolve_device
+    from kreeq_tpu_torch.io.fastx import iter_reads
+    from kreeq_tpu_torch.io.kreeqdb import read_kreeq
+    from kreeq_tpu_torch.ops import kernels
+    from kreeq_tpu_torch.ops import kmers as KM
+    from kreeq_tpu_torch.parallel import multihost, sharded
+
+    if not multihost.maybe_initialize():
+        raise AssertionError("no launch: the KREEQ_TPU_* variables are "
+                             "unset")
+    device = resolve_device()
+    group = dist.group.WORLD
+    rank = dist.get_rank()
+    res = {"rank": rank, "backend": dist.get_backend(), "device":
+           str(device)}
+
+    # (c)
+    chunks = KM.pack_reads(iter_reads(spec["reads"]), K, PIPE_CHUNK)
+    for _ in range(rank + 1):
+        buf = next(chunks)
+    reads = torch.from_numpy(buf).to(device)
+    with open(spec["window"]) as fh:
+        seq = fh.read().split("\n")[1]
+    asm = torch.from_numpy(seq_to_codes(seq if rank == 0 else "")).to(
+        device)
+    kernels.reset_launches()
+    sharded.stats_report(device)
+    with timed_calls(kernels, "count_runs_cuda") as counts, \
+            timed_calls(kernels, "probe_sorted_cuda") as probes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _qf, _qc, tot, miss, emiss = sharded.full_pipeline(reads, asm, K,
+                                                           group)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    res["c"] = {"wall_s": wall, "sums": [tot, miss, emiss],
+                "read_bases": int(buf.shape[0]),
+                "window": max(int(asm.shape[0]) - K + 1, 0),
+                "launches": dict(kernels.LAUNCHES),
+                **sharded.stats_report(device),
+                "count_runs": _checked("count_runs", KM.count_runs, counts),
+                "probe_sorted": _checked(
+                    "probe_sorted", lambda *a: KM.probe_sorted(*a[:5]),
+                    probes)}
+    check_launches(res["c"]["launches"], ("count", "probe_sorted"),
+                   f"rank {rank}'s full_pipeline")
+    del counts, probes, reads, asm
+
+    # (d)
+    db = read_kreeq(spec["db"], device)
+    kernels.reset_launches()
+    with timed_calls(kernels, "merge_sorted_cuda") as merges:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        merged = db.merge_sharded(db, group)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    res["d"] = {"wall_s": wall, "rows": len(merged),
+                "launches": dict(kernels.LAUNCHES),
+                **sharded.stats_report(device),
+                "merge_sorted": _checked("merge_sorted", KM.merge_sorted,
+                                         merges),
+                "digest": table_digest(merged.to_numpy())}
+    check_launches(res["d"]["launches"], ("merge",),
+                   f"rank {rank}'s merge_sharded")
+    dist.destroy_process_group()
+    res["launches"] = {key: res["c"]["launches"][key]
+                       + res["d"]["launches"][key] for key in kernels.LAUNCHES}
+    return res
+
+
+def phase_sharded(fq, fa, tmp, validate_out, ooc, card, device):
+    """Several ranks at full size, on phase 4's reads and assembly and
+    phase 6's DB: (a) `validate -r r0.fq r1.fq r2.fq r3.fq -f asm.fa`
+    as RANKS processes sharing the card over gloo (rank 0's stdout
+    equal to phase 4's, rank 1's empty); (b) build_table_distributed of
+    the 4 files in a 1-rank NCCL group in this process (equal to phase
+    6's DB), in core and under phase 10's caps (gathered into host
+    memory);
+    (c) full_pipeline across the ranks on a full validate
+    window of chr1 (the sums equal B3's on one card); (d) merge_sharded
+    of phase 6's DB with itself (equal to phase 10 (f)'s in-core
+    merge); (e) (a) again with phase 10's caps, KREEQ_TPU_MAX_TABLE_ROWS
+    = OOC_ROWS and KREEQ_TPU_HOST_MERGE_ROWS = OOC_MERGE_ROWS (stdout
+    equal to phase 4's; the gathered table on the host; B4 once per
+    table window and sequence window, as in phase 10 (a)).  Returns (launches summed over the
+    runs, report)."""
+    import torch
+    import torch.distributed as dist
+
+    from kreeq_tpu_torch.constants import seq_to_codes
+    from kreeq_tpu_torch.core.table import TreeMerger
+    from kreeq_tpu_torch.io.fastx import iter_reads
+    from kreeq_tpu_torch.io.kreeqdb import read_kreeq
+    from kreeq_tpu_torch.ops import kernels
+    from kreeq_tpu_torch.ops import kmers as KM
+    from kreeq_tpu_torch.ops.index import bucket_index
+    from kreeq_tpu_torch.ops.validate import validate_qv_sums
+    from kreeq_tpu_torch.parallel import multihost, sharded
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    db = os.path.join(tmp, "reads.kreeq")
+    files = split_fastq(fq, tmp)
+    report = {"card": card, "ranks": RANKS, "files_bytes":
+              [os.path.getsize(f) for f in files]}
+    total = {key: 0 for key in kernels.LAUNCHES}
+
+    def add(launches):
+        for key, n in launches.items():
+            total[key] += n
+
+    def cli_ranks(name, keys, **switches):
+        argv = ["validate", "-r", *files, "-f", fa, "-k", str(K),
+                "--verbose"]
+        runs = spawn_ranks(name, {"kind": "cli", "argv": argv}, tmp,
+                           **switches)
+        if runs[0][0] != validate_out:
+            raise AssertionError(f"({name}) rank 0's stdout differs from "
+                                 "phase 4's")
+        recs = []
+        for r, (out, err, res, wall) in enumerate(runs):
+            if r and out:
+                raise AssertionError(f"({name}) rank {r} printed {out!r}")
+            if f"rank {r} of {RANKS}: cuda:0, gloo backend" not in err:
+                raise AssertionError(f"({name}) rank {r} logged no gloo "
+                                     "group on cuda:0")
+            (build,) = build_records(err)
+            # the gathered table goes into host memory above a quarter
+            # of the row cap (table.device_gather_rows), and only there
+            if build["gather"]["host_calls"] != (name == "e"):
+                raise AssertionError(
+                    f"({name}) rank {r} gathered into host memory "
+                    f"{build['gather']['host_calls']} times")
+            check_launches(res["launches"], keys, f"({name}) rank {r}")
+            add(res["launches"])
+            rec = {"wall_s": wall, "run_s": res["wall_s"],
+                   "build_s": res["build_s"],
+                   "peak_gib": res["peak_gib"],
+                   "launches": res["launches"], "build": build}
+            recs.append(rec)
+            log(f"    ({name}) rank {r}: wall {wall:.2f} s from the "
+                f"spawn, {res['wall_s']:.2f} s in the CLI (build "
+                f"{res['build_s']:.2f} s), "
+                f"{build['chunks']} chunks in {build['rounds']} rounds, "
+                f"routed {build['route']['rows']} records "
+                f"({build['route']['bytes'] / 1e6:.1f} MB) in "
+                f"{build['route']['ms']:.1f} ms, gathered "
+                f"{build['gather']['rows']} rows "
+                f"({build['gather']['bytes'] / 1e6:.1f} MB) in "
+                f"{build['gather']['ms']:.1f} ms (into host memory: "
+                f"{build['gather']['host_calls']}); B1 "
+                f"{build['launches']['count']}, B2 "
+                f"{build['launches']['merge']} launches in the build; "
+                f"peak device memory {res['peak_gib']:.2f} GiB; "
+                f"{build['backend']} on {build['device']}")
+        return recs
+
+    # (a)
+    report["a"] = cli_ranks("a", ("count", "merge", "probe_qv"))
+
+    # (b) a 1-rank NCCL group in this process: in core, then with phase
+    # 10's caps, so the table is gathered into host memory through card
+    # buffers (sharded._gather_rows_host) and stays on the host
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=device)
+    want_db = read_kreeq(db, device).to_numpy()
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"(b) backend {dist.get_backend()}")
+        for name, caps in (("b", {}), ("b_host", {
+                "MAX_TABLE_ROWS": OOC_ROWS,
+                "HOST_MERGE_ROWS": OOC_MERGE_ROWS})):
+            kernels.reset_launches()
+            sharded.stats_report(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            with env(**caps):
+                t0 = time.perf_counter()
+                built = multihost.build_table_distributed(
+                    files, K, device, group=dist.group.WORLD)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            lb = dict(kernels.LAUNCHES)
+            rec = {"wall_s": wall, "rows": len(built), "launches": lb,
+                   "on_host": built.on_host, "peak_gib":
+                   torch.cuda.max_memory_allocated(device) / 2**30,
+                   **sharded.stats_report(device)}
+            check_launches(lb, ("count", "merge"), f"({name}) NCCL build")
+            add(lb)
+            if (rec["gather"]["host_calls"], built.on_host) != (
+                    (1, True) if caps else (0, False)):
+                raise AssertionError(
+                    f"({name}) gathered into host memory "
+                    f"{rec['gather']['host_calls']} times, the table on "
+                    f"the host: {built.on_host}")
+            for g, w in zip(built.to_numpy(), want_db):
+                if not np.array_equal(g, w):
+                    raise AssertionError(f"({name}) the NCCL build differs "
+                                         "from phase 6's DB")
+            del built
+            report[name] = rec
+            log(f"    ({name}) NCCL, 1 rank, caps {caps}: wall "
+                f"{wall:.2f} s, {rec['rows']} rows equal phase 6's DB, on "
+                f"the host: {rec['on_host']}; route "
+                f"{rec['route']['calls']} calls {rec['route']['ms']:.1f} ms, "
+                f"gather {rec['gather']['ms']:.1f} ms (into host memory: "
+                f"{rec['gather']['host_calls']}); peak device memory "
+                f"{rec['peak_gib']:.2f} GiB; launches {lb}")
+    finally:
+        dist.destroy_process_group()
+    del want_db
+
+    # (c) and (d): the expected sums, B3 on one card over the same window
+    window = os.path.join(tmp, "chr1_window.fa")
+    seq = head_fasta(fa, window, "chr1", WINDOW + K - 1)
+    chunks = KM.pack_reads(iter_reads(fq), K, PIPE_CHUNK)
+    tm = TreeMerger(device)
+    for _ in range(RANKS):
+        codes = torch.from_numpy(next(chunks)).to(device)
+        keys, _isfw, edges, valid = KM.kmer_positions(codes, K)
+        tm.push(kernels.count_sorted_cuda(keys, edges, valid))
+    tab = tm.finalize()
+    codes = torch.from_numpy(seq_to_codes(seq)).to(device)
+    p = codes.shape[0] - K + 1
+    b3 = validate_qv_sums(*tab, codes, K, 0, 0, p,
+                          bucket_index(tab[0], K)).tolist()
+    valid = int(KM.kmer_positions(codes, K)[3].sum())
+    want = [valid, b3[0] - (p - valid), b3[1]]
+    del tm, tab, codes
+    torch.cuda.empty_cache()
+    runs = spawn_ranks("cd", {"kind": "checks", "reads": fq,
+                              "window": window, "db": db}, tmp)
+    report["c"], report["d"] = [], []
+    for r, (out, _err, res, wall) in enumerate(runs):
+        if out:
+            raise AssertionError(f"(c) rank {r} printed {out!r}")
+        if res["c"]["sums"] != want:
+            raise AssertionError(f"(c) rank {r}: sums {res['c']['sums']}, "
+                                 f"B3 on one card {want}")
+        if res["d"]["digest"] != ooc["merge_digest"]:
+            raise AssertionError(f"(d) rank {r}: merge_sharded differs from "
+                                 "phase 10 (f)'s in-core merge")
+        add(res["launches"])
+        report["c"].append({"wall_s": wall, **res["c"]})
+        report["d"].append(res["d"])
+        c, d = res["c"], res["d"]
+        log(f"    (c) rank {r} ({res['backend']} on {res['device']}): "
+            f"full_pipeline {c['wall_s']:.2f} s, sums {c['sums']} (B3: "
+            f"{want}); B1 {c['count_runs']['calls']} calls "
+            f"{sum(c['count_runs']['ms']):.2f} ms, B5 "
+            f"{c['probe_sorted']['calls']} calls of "
+            f"{c['probe_sorted']['shapes']} "
+            f"{sum(c['probe_sorted']['ms']):.2f} ms, exact; route "
+            f"{c['route']['ms']:.1f} ms, back {c['back']['ms']:.1f} ms")
+        log(f"    (d) rank {r}: merge_sharded {d['wall_s']:.2f} s, "
+            f"{d['rows']} rows equal phase 10 (f)'s; B2 "
+            f"{d['merge_sorted']['calls']} calls of "
+            f"{d['merge_sorted']['shapes']} "
+            f"{sum(d['merge_sorted']['ms']):.2f} ms, exact; gather "
+            f"{d['gather']['ms']:.1f} ms; peak device memory "
+            f"{res['peak_gib']:.2f} GiB")
+
+    # (e) sharded and windowed
+    report["e"] = cli_ranks("e", ("count", "merge", "probe_select"),
+                            MAX_TABLE_ROWS=OOC_ROWS,
+                            HOST_MERGE_ROWS=OOC_MERGE_ROWS)
+    want_b4 = ooc["steps"]["a"]["launches"]["probe_select"]
+    for r, rec in enumerate(report["e"]):
+        if not rec["build"]["on_host"]:
+            raise AssertionError(f"(e) rank {r}: the table is not "
+                                 "host-resident")
+        if rec["launches"]["probe_select"] != want_b4:
+            raise AssertionError(
+                f"(e) rank {r}: {rec['launches']['probe_select']} B4 "
+                f"launches, phase 10 (a) {want_b4}")
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["launches"] = total
+    log(f"[11 sharded] {RANKS} ranks sharing the card over gloo, and 1 "
+        f"NCCL rank: validate stdout (in core and windowed), the NCCL "
+        f"build, the pipeline's sums and the sharded merge equal their "
+        f"one-card counterparts; {report['wall_s']:.1f} s; launches "
+        f"{total}")
     return total, report
 
 
@@ -1544,6 +2022,7 @@ def main() -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile the DB write and a warm track run "
                     "(phase 7), writing summaries and a trace to DIR")
+    ap.add_argument("--rank-worker", metavar="JOB", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -1552,6 +2031,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import kreeq_tpu_torch  # noqa: F401  (run from the repository root)
+
+    if args.rank_worker:
+        return rank_worker(args.rank_worker)
 
     device = torch.device("cuda", 0)
 
@@ -1580,8 +2062,11 @@ def main() -> int:
         phase_subgraph(tmp, device)
         ooc_launches, ooc = phase_out_of_core(fq, fa, tmp, validate_out,
                                               card, device)
+        shard_launches, shard = phase_sharded(fq, fa, tmp, validate_out,
+                                              ooc, card, device)
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"out_of_core": ooc}))
+    print(json.dumps({"sharded": shard}))
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -1591,7 +2076,8 @@ def main() -> int:
          "bound_ms": res[name]["bound_ms"], "bound_by": "bytes",
          # no one PyTorch call computes any of the five (PERF.md)
          "library_ms": None, "shape": res[name]["shape"],
-         "ooc_launches": ooc_launches[key]}
+         "ooc_launches": ooc_launches[key],
+         "sharded_launches": shard_launches[key]}
         for name, key, src, tpu, path in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

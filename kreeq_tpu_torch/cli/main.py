@@ -11,11 +11,17 @@ src/main.cpp:169-179).  This port runs `validate` from reads (-r) or a
 db -f asm [-o x.gfa|gfa2|gfa.gz|gfa2.gz|gfa]`.  --trace-dir DIR writes a
 torch.profiler trace of any mode to DIR.  The device comes from
 KREEQ_TPU_PLATFORM (device.py).
+
+Under a multi-process launch (KREEQ_TPU_COORDINATOR, _NUM_PROCESSES,
+_PROCESS_ID; parallel/multihost.py), `validate -r` builds the table
+across the ranks from each rank's share of the read files and the rest
+runs on every rank; rank 0 alone prints and writes output files.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import os
 import sys
 from typing import List
@@ -23,11 +29,6 @@ from typing import List
 from ..config import UserInput, get_file_ext
 
 VERSION = "0.1.0"
-
-# switches of the JAX package's sharded builds that the port does not
-# honour yet; a run that sets one stops before any work rather than
-# silently ignore it
-_UNPORTED_SWITCHES = ("KREEQ_TPU_FORCE_SHARDED",)
 
 
 def _err(msg: str) -> "None":
@@ -173,36 +174,59 @@ def load_graph(ui: UserInput, device):
     _err("Cannot load DBG input. Exiting.\n")
 
 
-def _refuse_unported_switches() -> None:
-    # only a value the JAX package acts on: FORCE_SHARDED as "1"
-    for name in _UNPORTED_SWITCHES:
-        if os.environ.get(name, "") == "1":
-            _err(f"{name} is set, but the PyTorch port does not honour it "
-                 "yet (sharded builds are not ported). Unset it, or run "
-                 "the JAX package's kreeq.\n")
+class _Sink(io.TextIOBase):
+    """stdout of the ranks other than 0: takes and drops every write."""
+
+    def writable(self) -> bool:
+        return True
+
+    def write(self, s: str) -> int:
+        return len(s)
 
 
 def run(argv: List[str]) -> int:
-    _refuse_unported_switches()
     ui = parse_args(argv)
 
+    import torch.distributed as dist
+
     from ..device import resolve_device
+    from ..parallel import multihost
     from ..utils import log
 
-    device = resolve_device()
     log.set_flags(ui.verbose, ui.profile)
-    if ui.max_mem or ui.threads:
-        log.verbose("Note: -m/--max-memory and -j/--threads are "
-                    "accepted for compatibility but not used; batch "
-                    "sizes are planned statically (KREEQ_TPU_CHUNK).")
-    with (log.trace(ui.trace_dir, device) if ui.trace_dir
-          else contextlib.nullcontext()):
-        _run_mode(ui, device)
-        log.print_profile()
+    # multi-process launch: the build runs across the ranks, the rest
+    # on every rank, and only rank 0 prints
+    distributed = multihost.maybe_initialize()
+    device = resolve_device()
+    stdout = sys.stdout
+    if distributed and dist.get_rank() != 0:
+        sys.stdout = _Sink()
+    try:
+        if ui.max_mem or ui.threads:
+            log.verbose("Note: -m/--max-memory and -j/--threads are "
+                        "accepted for compatibility but not used; batch "
+                        "sizes are planned statically (KREEQ_TPU_CHUNK).")
+        with (log.trace(ui.trace_dir, device)
+              if ui.trace_dir and _writes_output()
+              else contextlib.nullcontext()):
+            _run_mode(ui, device, multihost.world())
+            log.print_profile()
+    finally:
+        sys.stdout = stdout
+        if distributed:
+            dist.destroy_process_group()
     return 0
 
 
-def _run_mode(ui: UserInput, device) -> None:
+def _writes_output() -> bool:
+    """Whether this process writes output files: rank 0 of a launch, or
+    a process alone."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _run_mode(ui: UserInput, device, group) -> None:
     from ..core.dbg import DBG
     from ..core.table import KmerTable
     from ..io.fastx import load_genome
@@ -221,8 +245,7 @@ def _run_mode(ui: UserInput, device) -> None:
         if ui.in_reads:
             log.verbose("Loading input reads.")
             with log.phase("build k-mer DB"):
-                table = KmerTable.from_reads(ui.in_reads, ui.kmer_len,
-                                             device)
+                table = _build(ui, device, group)
             log.verbose("Reads loaded.")
         else:
             with log.phase("load k-mer DB"):
@@ -232,7 +255,7 @@ def _run_mode(ui: UserInput, device) -> None:
             genome_of(dbg)
         with log.phase("report"):
             report(dbg)
-        if ui.anomalies_out:
+        if ui.anomalies_out and _writes_output():
             from ..core.variants import write_anomalies
 
             with log.phase("detect anomalies"):
@@ -252,7 +275,7 @@ def _run_mode(ui: UserInput, device) -> None:
         ui.kmer_len = k
         table = KmerTable.empty(k, device)
         for db in ui.kmer_db:
-            table = table.merge(read_kreeq(db, device))
+            table = table.merge(read_kreeq(db, device), group)
         report(DBG(ui, table))
     else:  # subgraph (reference: src/input.cpp:153-181)
         from ..core.subgraph import run_subgraph
@@ -264,6 +287,31 @@ def _run_mode(ui: UserInput, device) -> None:
             genome_of(dbg)
         run_subgraph(dbg)
         report(dbg)
+
+
+def _build(ui: UserInput, device, group):
+    """The table of the -r reads.  Under a launch, every rank counts its
+    share of the files (build_table_distributed), or, with
+    KREEQ_TPU_BUILD_CKPT, every rank reads them all for the resumable
+    sharded build, whose files rank 0 writes; alone,
+    KmerTable.from_reads."""
+    import torch.distributed as dist
+
+    from ..core.table import KmerTable
+    from ..parallel import multihost
+
+    if group is None:
+        return KmerTable.from_reads(ui.in_reads, ui.kmer_len, device)
+    ckpt = os.environ.get("KREEQ_TPU_BUILD_CKPT")
+    if ckpt:
+        from ..core.build_ckpt import from_reads_checkpointed
+
+        return from_reads_checkpointed(ui.in_reads, ui.kmer_len, ckpt,
+                                       device, group=group)
+    mine = multihost.shard_read_files(ui.in_reads, dist.get_world_size(),
+                                      dist.get_rank())
+    return multihost.build_table_distributed(mine, ui.kmer_len, device,
+                                             group=group)
 
 
 def report(dbg) -> None:
@@ -299,6 +347,8 @@ def report(dbg) -> None:
             with log.phase("validate"):
                 dbg.validate_sequences(need_tracks=case in (2, 3, 4))
 
+    if not _writes_output():
+        return
     with log.phase("write output"):
         if case == 1:
             from ..io.kreeqdb import write_kreeq

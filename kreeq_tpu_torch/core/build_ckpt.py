@@ -28,6 +28,15 @@ Saturating adds are associative only below the 0xFFFFFFFF clamp, so a
 checkpointed build equals the plain build bit for bit unless a counter
 crosses 2^32 - 1 across a different merge order.
 
+Under a process group of several ranks (KmerTable.from_reads with
+`group`, the JAX package's sharded branch), every rank reads the whole
+stream, each batch is a ShardedCounter.drain(), and every rank replays
+the manifest and runs the same merges (sharded_merge where the JAX
+package's merge would shard); rank 0 alone writes parts, merge outputs
+and manifest records and deletes merged parts, and every rank passes a
+barrier after each, so the directory is the single-process one.  The
+ranks must share the checkpoint directory's filesystem.
+
 Enabled by KREEQ_TPU_BUILD_CKPT=<dir> (KmerTable.from_reads delegates
 here); KREEQ_TPU_BUILD_CKPT_BATCH sets the chunks per part (default 4);
 KREEQ_TPU_BUILD_CKPT_CRASH_AFTER=<n> raises after the n-th manifest
@@ -45,6 +54,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..constants import keys_from_u64, keys_to_u64
 
@@ -153,22 +163,32 @@ def _timed_write(op: str, ckpt_dir: str, name: str, arrs) -> None:
 
 
 def from_reads_checkpointed(read_files, k: int, ckpt_dir: str, device,
-                            chunk: Optional[int] = None):
+                            chunk: Optional[int] = None, group=None):
     """KmerTable.from_reads on `device` with on-disk resume state in
-    `ckpt_dir`."""
+    `ckpt_dir`; sharded over `group` (a group of several ranks, or
+    None)."""
     from ..io.fastx import iter_reads
     from ..ops import kmers as K
     from ..ops.kernels import count_sorted_cuda
+    from ..parallel.sharded import sharded_merge
     from ..utils import log
-    from .table import KmerTable, TreeMerger, _to_host
+    from .table import (KmerTable, ShardedCounter, TreeMerger, _to_host,
+                        shard_merge)
 
     if chunk is None:
         chunk = int(os.environ.get("KREEQ_TPU_CHUNK", 1 << 23))
     read_files = list(read_files)
     device = torch.device(device)
     batch = int(os.environ.get("KREEQ_TPU_BUILD_CKPT_BATCH", "4"))
-    os.makedirs(ckpt_dir, exist_ok=True)
-    _clean_tmp(ckpt_dir)
+    writer = group is None or dist.get_rank(group) == 0
+
+    def barrier():
+        if group is not None:
+            dist.barrier(group=group)
+
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        _clean_tmp(ckpt_dir)
     crash = _CrashHook()
     t_resume = time.perf_counter()
 
@@ -182,7 +202,9 @@ def from_reads_checkpointed(read_files, k: int, ckpt_dir: str, device,
               "files": [os.path.abspath(p) for p in read_files],
               "sizes": sizes}
 
+    barrier()  # the directory exists
     recs = _read_manifest(ckpt_dir)
+    fresh = not recs
     if recs:
         h = recs[0]
         stale = {kk: vv for kk, vv in h.items() if kk != "op"} != \
@@ -193,7 +215,8 @@ def from_reads_checkpointed(read_files, k: int, ckpt_dir: str, device,
                 "build (k/chunk/batch/files mismatch); remove it or "
                 "point KREEQ_TPU_BUILD_CKPT elsewhere")
         recs = recs[1:]
-    else:
+    barrier()  # every rank has read the manifest before rank 0 writes
+    if fresh and writer:
         _append_manifest(ckpt_dir, header)
 
     # replay: live part set + chunks already consumed + name counter
@@ -217,6 +240,7 @@ def from_reads_checkpointed(read_files, k: int, ckpt_dir: str, device,
         log.verbose(
             f"build checkpoint: resuming with {len(live)} parts, "
             f"{chunks_done} chunks done, stream_done={stream_done}")
+    if recs and writer:
         # reclaim orphans: files of parts already consumed by a recorded
         # merge (death between record and delete) and unrecorded merge
         # outputs (death between write and record; they are re-created
@@ -233,9 +257,11 @@ def from_reads_checkpointed(read_files, k: int, ckpt_dir: str, device,
 
     def record_part(name: str, arrs, nchunks: int) -> None:
         rows = len(arrs[0])
-        _timed_write("part", ckpt_dir, name, arrs)
-        _append_manifest(ckpt_dir, {"op": "part", "name": name,
-                                    "rows": rows, "chunks": nchunks})
+        if writer:
+            _timed_write("part", ckpt_dir, name, arrs)
+            _append_manifest(ckpt_dir, {"op": "part", "name": name,
+                                        "rows": rows, "chunks": nchunks})
+        barrier()
         live[name] = rows
         crash.tick()
 
@@ -249,14 +275,17 @@ def from_reads_checkpointed(read_files, k: int, ckpt_dir: str, device,
         for _ in range(chunks_done):  # deterministic stream: skip
             next(chunks, None)
 
-        tm = TreeMerger(device)
+        if group is not None:
+            sc = ShardedCounter(group, k, device)
+        else:
+            tm = TreeMerger(device)
         in_batch = 0
 
         def close_batch():
             nonlocal in_batch, seq, chunks_done
             if in_batch == 0:
                 return
-            arrs = tm.finalize()
+            arrs = sc.drain() if group is not None else tm.finalize()
             if arrs is not None:
                 record_part(f"p{seq:05d}", _to_host(arrs), in_batch)
                 seq += 1
@@ -264,9 +293,12 @@ def from_reads_checkpointed(read_files, k: int, ckpt_dir: str, device,
             in_batch = 0
 
         for buf in chunks:
-            codes = torch.from_numpy(buf).to(device)
-            keys, _isfw, edges, valid = K.kmer_positions(codes, k)
-            tm.push(count_sorted_cuda(keys, edges, valid))
+            if group is not None:
+                sc.add(buf)
+            else:
+                codes = torch.from_numpy(buf).to(device)
+                keys, _isfw, edges, valid = K.kmer_positions(codes, k)
+                tm.push(count_sorted_cuda(keys, edges, valid))
             in_batch += 1
             if log.verbose_flag:
                 log.verbose(f"counted chunk {chunks_done + in_batch - 1} "
@@ -274,27 +306,34 @@ def from_reads_checkpointed(read_files, k: int, ckpt_dir: str, device,
             if in_batch == batch:
                 close_batch()
         close_batch()
-        _append_manifest(ckpt_dir, {"op": "eof", "chunks": chunks_done})
+        if writer:
+            _append_manifest(ckpt_dir, {"op": "eof", "chunks": chunks_done})
 
     # ---- stage 2: merge the recorded parts, smallest first ---------
     while len(live) > 1:
         a, b = sorted(live, key=lambda nm: (live[nm], nm))[:2]
         pa = _read_part(ckpt_dir, a)
         pb = _read_part(ckpt_dir, b)
-        out = _to_host(TreeMerger._trim(TreeMerger(device).merge(
-            (*pa, len(pa[0])), (*pb, len(pb[0])))))
+        barrier()  # every rank has read both before rank 0 deletes them
+        if shard_merge(group, len(pa[0]) + len(pb[0])):
+            out = _to_host(sharded_merge(pa, pb, group, device))
+        else:
+            out = _to_host(TreeMerger._trim(TreeMerger(device).merge(
+                (*pa, len(pa[0])), (*pb, len(pb[0])))))
         del pa, pb
         name = f"m{seq:05d}"
         seq += 1
-        _timed_write("merge", ckpt_dir, name, out)
-        _append_manifest(ckpt_dir, {"op": "merge", "out": name,
-                                    "ins": [a, b], "rows": len(out[0])})
-        # inputs are dead only once the merge record is durable
+        if writer:
+            _timed_write("merge", ckpt_dir, name, out)
+            _append_manifest(ckpt_dir, {"op": "merge", "out": name,
+                                        "ins": [a, b], "rows": len(out[0])})
+            # inputs are dead only once the merge record is durable
+            _delete_part(ckpt_dir, a)
+            _delete_part(ckpt_dir, b)
+        barrier()  # the output is on disk before any rank reads it
         live.pop(a)
         live.pop(b)
         live[name] = len(out[0])
-        _delete_part(ckpt_dir, a)
-        _delete_part(ckpt_dir, b)
         if log.verbose_flag:
             log.verbose(f"checkpoint merge {a}+{b} -> {name} "
                         f"({len(out[0])} rows)")

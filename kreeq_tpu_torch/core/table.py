@@ -25,7 +25,12 @@ a result above the cap stays on the host.  The JAX package's switches
 KREEQ_TPU_MAX_TABLE_ROWS and KREEQ_TPU_HOST_MERGE_ROWS set the two
 caps; KREEQ_TPU_BUILD_CKPT makes the build resumable (build_ckpt.py).
 
-Not yet ported: sharded builds and unions (several devices).
+Under a torch.distributed group of several ranks (`group`), the build
+counts each chunk on its owner ranks (ShardedCounter, through
+parallel/sharded.py) and gathers the table to every rank, and a union
+merges key-range slice pairs, one a rank (`merge_sharded`): on large
+inputs, or on any with KREEQ_TPU_FORCE_SHARDED=1, as the JAX package
+shards over its devices.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..constants import LARGEST_U32, keys_from_u64, keys_to_u64
 from ..device import stamp
@@ -99,6 +105,16 @@ def _host_merge_threshold(device: torch.device) -> int:
     if env:
         return max(int(env), 1)
     return max(max_device_rows(device) // 4, 1 << 20)
+
+
+def device_gather_rows(device: torch.device) -> int:
+    """Rows above which a sharded table is gathered into host memory
+    (parallel/sharded.gather_table).  A gather on the device holds
+    about three device rows a gathered row at its peak (the pieces and
+    their concatenation, the sort, the widened result), as a device
+    merge holds its inputs and output, so it stays on the device up to
+    a quarter of the row cap."""
+    return max(max_device_rows(device) // 4, 1)
 
 
 def u32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -215,6 +231,51 @@ def _to_host(part):
     return (part[0].cpu().numpy(), *(_u32(x) for x in part[1:4]))
 
 
+def part_to_rows(part, device):
+    """A trimmed part as rows for a collective on `device`: int64 keys
+    [m] and the nine counters (cov, fw, bw) as their u32 bit patterns
+    in int32 [m, 9], 44 B a row."""
+    keys, cov, fw, bw = part[:4]
+    if _is_host(part):
+        vals = np.concatenate([cov[:, None], fw, bw], 1).view(np.int32)
+        return (torch.from_numpy(keys).to(device),
+                torch.from_numpy(vals).to(device))
+    return (keys.to(device),
+            u32_bits(torch.cat([cov[:, None], fw, bw], 1)).to(device))
+
+
+def rows_to_part(keys, vals):
+    """part_to_rows' rows as a trimmed part in the device form."""
+    wide = widen_u32(vals)
+    return (keys, wide[:, 0].contiguous(), wide[:, 1:5].contiguous(),
+            wide[:, 5:9].contiguous())
+
+
+def rows_to_host_part(keys, vals):
+    """part_to_rows' rows in host memory as a trimmed host part (int64
+    keys, u32 counters)."""
+    v = vals.numpy().view(np.uint32)
+    return (keys.numpy(), *(np.ascontiguousarray(x) for x in
+                            (v[:, 0], v[:, 1:5], v[:, 5:9])))
+
+
+def _sharded(group) -> bool:
+    """A group of several ranks (None: this process alone)."""
+    return group is not None and dist.get_world_size(group) > 1
+
+
+def _force_sharded() -> bool:
+    return os.environ.get("KREEQ_TPU_FORCE_SHARDED") == "1"
+
+
+def shard_merge(group, rows: int) -> bool:
+    """Whether a union of `rows` rows in all runs across the ranks of
+    `group` (merge_sharded): under a group of several ranks, above 2^23
+    rows or with KREEQ_TPU_FORCE_SHARDED=1 (the JAX package's rule for
+    its devices)."""
+    return _sharded(group) and (_force_sharded() or rows > (1 << 23))
+
+
 def _to_device(part, device):
     """A trimmed part as device tensors in the device form."""
     if not _is_host(part):
@@ -294,6 +355,70 @@ class TreeMerger:
             acc = part if acc is None else self.merge(acc, self._trim(part))
         self.levels = []
         return None if acc is None else self._trim(acc)[:4]
+
+
+class ShardedCounter:
+    """Chunk counter over a process group (counterpart of the JAX
+    ShardedCounter; every rank of `group` holds one).
+
+    Each round, every rank counts one chunk with sharded_count, so each
+    rank receives the records of the keys it owns, and tree-merges that
+    sub-table into its own TreeMerger; a rank without a chunk that round
+    enters the same collectives with an empty one.  drain() gathers
+    every rank's shard to every rank.  Two ways to feed it:
+      add(buf)  - a stream that every rank reads whole: chunk i is rank
+                  i % n's, and a round runs every n chunks;
+      step(buf) - this rank's own chunk of a round, or None, when every
+                  rank reads its own inputs (multihost.py)."""
+
+    def __init__(self, group, k: int, device):
+        self.group = group
+        self.k = k
+        self.device = torch.device(device)
+        self.n = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.tm = TreeMerger(self.device)
+        self.mine = None  # this rank's chunk of the round add() fills
+        self.seen = 0  # chunks add() took since the last drain
+        self.chunks = 0  # chunks this rank counted
+
+    def add(self, buf) -> None:
+        if self.seen % self.n == self.rank:
+            self.mine = buf
+        self.seen += 1
+        if self.seen % self.n == 0:
+            self.step(self.mine)
+            self.mine = None
+
+    def step(self, buf) -> None:
+        from ..parallel.sharded import sharded_count
+
+        if buf is None:
+            codes = torch.zeros(0, dtype=torch.uint8, device=self.device)
+        else:
+            codes = torch.from_numpy(buf).to(self.device)
+            self.chunks += 1
+        part = sharded_count(codes, self.k, self.group)
+        if int(part[4]):
+            self.tm.push(part)
+
+    def drain(self):
+        """The whole table of what was counted since the last drain, on
+        every rank, sorted by key, or None when no rank counted a
+        k-mer: each rank's shard is its TreeMerger's result, and
+        gather_table gives every rank the union, disjoint by ownership,
+        in the device form, or as host arrays above
+        device_gather_rows()."""
+        from ..parallel.sharded import gather_table
+
+        if self.seen % self.n:
+            self.step(self.mine)
+        self.mine, self.seen = None, 0
+        acc = self.tm.finalize()
+        if acc is None:
+            e = KmerTable.empty(self.k, self.device)
+            acc = (e.keys, e.cov, e.fw, e.bw)
+        return gather_table(acc, self.group, self.device, sort=True)
 
 
 @dataclass
@@ -415,7 +540,7 @@ class KmerTable:
 
     @classmethod
     def from_reads(cls, read_files: Iterable[str], k: int, device,
-                   chunk: int | None = None) -> "KmerTable":
+                   chunk: int | None = None, group=None) -> "KmerTable":
         """Count the canonical k-mers of all reads on `device`.
 
         `chunk` (bases per device step) defaults to the KREEQ_TPU_CHUNK
@@ -423,7 +548,13 @@ class KmerTable:
         count_sorted_cuda; chunk tables are tree-merged (TreeMerger;
         reference build phase: src/graph-builder.cpp:34-223).  With
         KREEQ_TPU_BUILD_CKPT set, the build is resumable
-        (build_ckpt.from_reads_checkpointed)."""
+        (build_ckpt.from_reads_checkpointed).
+
+        `group`: a torch.distributed group whose every rank calls with
+        the same reads.  With several ranks, the build is sharded
+        (ShardedCounter) when the reads pass 8 chunks of bytes or
+        KREEQ_TPU_FORCE_SHARDED=1 (the JAX package's rule for its
+        devices), and every rank gets the whole table."""
         from ..io.fastx import iter_reads
         from ..ops import kmers as K
         from ..ops.kernels import count_sorted_cuda
@@ -433,16 +564,35 @@ class KmerTable:
             chunk = int(os.environ.get("KREEQ_TPU_CHUNK", 1 << 23))
         read_files = list(read_files)
         device = torch.device(device)
+        if not _sharded(group):
+            group = None
+        elif not _force_sharded():
+            # shard only where the inputs amortize the collectives
+            try:
+                total = sum(os.path.getsize(p) for p in read_files)
+            except (OSError, TypeError):
+                total = 0
+            if total <= 8 * chunk:
+                group = None
         ckpt = os.environ.get("KREEQ_TPU_BUILD_CKPT")
         if ckpt:
             from .build_ckpt import from_reads_checkpointed
 
             return from_reads_checkpointed(read_files, k, ckpt, device,
-                                           chunk=chunk)
+                                           chunk=chunk, group=group)
 
         def read_iter():
             for path in read_files:
                 yield from iter_reads(path)
+
+        if group is not None:
+            sc = ShardedCounter(group, k, device)
+            for buf in K.pack_reads(read_iter(), k, chunk):
+                sc.add(buf)
+            acc = sc.drain()
+            if acc is None:
+                return cls.empty(k, device)
+            return cls.placed(k, acc, device)
 
         tm = TreeMerger(device)
         for i, buf in enumerate(K.pack_reads(read_iter(), k, chunk)):
@@ -617,18 +767,23 @@ class KmerTable:
                           histogram=dict(zip(vals.tolist(),
                                              counts.tolist())))
 
-    def merge(self, other: "KmerTable") -> "KmerTable":
+    def merge(self, other: "KmerTable", group=None) -> "KmerTable":
         """Union with saturating adds (replaces `kreeq union`,
         reference: src/graph-builder.cpp:297-351): on the host above
         `_host_merge_threshold()` merged rows, else on the compute
         device through merge_sorted_cuda; the result is placed by its
-        row count (KmerTable.placed)."""
+        row count (KmerTable.placed).  Under a `group` of several ranks
+        that all hold both tables, `merge_sharded` when the two hold
+        more than 2^23 rows or KREEQ_TPU_FORCE_SHARDED=1 (the JAX
+        package's rule for its devices)."""
         from ..ops.kernels import merge_sorted_cuda
 
         if len(self) == 0:
             return other
         if len(other) == 0:
             return self
+        if shard_merge(group, len(self) + len(other)):
+            return self.merge_sharded(other, group)
         dev = self.device
         if len(self) + len(other) > _host_merge_threshold(dev):
             out = _timed_host_merge(self.host_arrays(), other.host_arrays())
@@ -641,3 +796,18 @@ class KmerTable:
 
         part = merge_sorted_cuda(*dev_arrays(self), *dev_arrays(other))
         return KmerTable.placed(self.k, TreeMerger._trim(part)[:4], dev)
+
+    def merge_sharded(self, other: "KmerTable", group) -> "KmerTable":
+        """Union across the ranks of `group`, each of which holds both
+        tables: every rank merges one key-range slice pair and gets the
+        whole result (parallel/sharded.sharded_merge), placed by its
+        row count."""
+        from ..parallel.sharded import sharded_merge
+
+        def arrays(t):
+            return t.host_arrays() if t.on_host else (t.keys, t.cov, t.fw,
+                                                      t.bw)
+
+        dev = self.device
+        part = sharded_merge(arrays(self), arrays(other), group, dev)
+        return KmerTable.placed(self.k, part, dev)

@@ -9,8 +9,10 @@ every bits of the bucket directory's size rule, k = 4, a bucket of
 counters of 2^31 and above, and a call without the directory (and for
 the generic probe misaligned rows); and
 the subgraph searches' neighbour scan (plain torch ops) on the card
-against the CPU; and B4 and B5 on the uploaded windows of a
-host-resident table, each with its own directory.  Needs a
+against the CPU; B4 and B5 on the uploaded windows of a
+host-resident table, each with its own directory; the sharded path's
+owners and routing on the card against the CPU, and a 1-rank NCCL
+build against the plain build.  Needs a
 CUDA device (the `gpu` marker); run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m gpu
@@ -702,3 +704,107 @@ def test_trace_dir_records_card_kernels(cuda, tmp_path):
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
     assert any("probe_qv" in name for name in kernels), sorted(kernels)
     assert any(e.get("name", "").startswith("aten::") for e in events)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@pytest.fixture
+def one_rank(cuda, request):
+    """A 1-rank process group of the backend `request.param` on the
+    card, destroyed after the test."""
+    import torch.distributed as dist
+
+    backend = request.param
+    kwargs = ({"device_id": torch.device("cuda", torch.cuda.current_device())}
+              if backend == "nccl" else {})
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0,
+                            **kwargs)
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("one_rank", ["gloo"], indirect=True)
+@pytest.mark.parametrize("k", [21, 32])
+def test_owner_and_route_cuda_equal_cpu(cuda, one_rank, k):
+    """owner_of and the owner split on the card give the CPU's owners,
+    order and sizes for 2, 3 and 8 owners (k = 32: keys with the top
+    bit set); route through a 1-rank group on the card gives the CPU's
+    records, and its Route.back puts answers back in record order."""
+    from kreeq_tpu_torch.ops.kmers import kmer_positions
+    from kreeq_tpu_torch.parallel.sharded import owner_of, route, split
+
+    rng = np.random.default_rng(k + 7)
+    codes = torch.from_numpy(rng.integers(0, 4, 300_000).astype(np.uint8))
+    keys, _isfw, edges, _valid = kmer_positions(codes, k)
+    if k == 32:
+        assert bool((keys >= 0).any())  # biased: the u64 top bit set
+    for n in (2, 3, 8):
+        want = owner_of(keys, n)
+        assert int(want.min()) == 0 and int(want.max()) == n - 1
+        assert torch.equal(owner_of(keys.to(cuda), n).cpu(), want)
+        for g, w in zip(split(keys.to(cuda), n), split(keys, n)):
+            assert torch.equal(g.cpu(), w)
+    got = route(keys.to(cuda), (edges.to(cuda),), one_rank)
+    want = route(keys, (edges,), one_rank)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1][0].cpu(), want[1][0])
+    assert torch.equal(got[2].back(got[0]).cpu(), keys)
+
+
+@pytest.mark.parametrize("one_rank", ["nccl"], indirect=True)
+def test_nccl_one_rank_build_equals_from_reads(cuda, one_rank, tmp_path):
+    """build_table_distributed in a 1-rank NCCL group (every collective
+    NCCL's, on the card) equals from_reads on one card."""
+    from kreeq_tpu_torch.core.table import KmerTable
+    from kreeq_tpu_torch.ops import kernels
+    from kreeq_tpu_torch.parallel.multihost import build_table_distributed
+
+    rng = np.random.default_rng(5)
+    genome = "".join(rng.choice(list("ACGT"), 20_000))
+    reads = tmp_path / "reads.fa"
+    reads.write_text("".join(f">r{i}\n{genome[s:s + 150]}\n" for i, s in
+                             enumerate(rng.integers(0, 19_850, 2_000))))
+    kernels.reset_launches()
+    got = build_table_distributed([str(reads)], 21, cuda, chunk=1 << 14,
+                                  group=one_rank)
+    assert kernels.LAUNCHES["count"] > 10 and kernels.LAUNCHES["merge"] > 0
+    want = KmerTable.from_reads([str(reads)], 21, cuda, chunk=1 << 14)
+    assert len(want) > 10_000
+    for g, w in zip(got.to_numpy(), want.to_numpy()):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("one_rank", ["nccl", "gloo"], indirect=True)
+def test_one_rank_build_above_cap_gathers_on_host(cuda, one_rank, tmp_path,
+                                                  monkeypatch):
+    """With a row cap of 4000, build_table_distributed gathers the table
+    into host memory (NCCL: through card buffers of 1000 rows, many
+    steps), keeps it in the host form, and equals from_reads on one
+    card without the cap."""
+    from kreeq_tpu_torch.core.table import KmerTable
+    from kreeq_tpu_torch.parallel import sharded
+    from kreeq_tpu_torch.parallel.multihost import build_table_distributed
+
+    rng = np.random.default_rng(6)
+    genome = "".join(rng.choice(list("ACGT"), 20_000))
+    reads = tmp_path / "reads.fa"
+    reads.write_text("".join(f">r{i}\n{genome[s:s + 150]}\n" for i, s in
+                             enumerate(rng.integers(0, 19_850, 2_000))))
+    want = KmerTable.from_reads([str(reads)], 21, cuda, chunk=1 << 14)
+    monkeypatch.setenv("KREEQ_TPU_MAX_TABLE_ROWS", "4000")
+    monkeypatch.setattr(sharded, "_HOST_GATHER_STEP", 1000)
+    sharded.stats_report(cuda)
+    got = build_table_distributed([str(reads)], 21, cuda, chunk=1 << 14,
+                                  group=one_rank)
+    gather = sharded.stats_report(cuda)["gather"]
+    assert (gather["calls"], gather["host_calls"]) == (1, 1)
+    assert got.on_host and len(want) > 10_000
+    for g, w in zip(got.to_numpy(), want.to_numpy()):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
