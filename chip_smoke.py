@@ -96,11 +96,23 @@ non-zero and never prints the final line):
      it is only there); per rank the wall, chunks and rounds, records
      and bytes routed, route and gather ms (CUDA events), where the
      gather went, launches, peak device memory and backend.
-The fourth-to-last line is a JSON object of phase 10's records, the
-third-to-last one of phase 11's; the second-to-last one with each
-kernel's launches (and its launches in phases 10 and 11), error, times,
-bound and shape; the last is {"ok": true, "device": {...}}.  Needs a
-CUDA device; imports no JAX.
+ 12. the golden harness and the warmup (cli/validate_runner.py,
+     cli/generate_tests.py, cli/warmup.py): (a) a golden corpus made
+     from --seed with every name the generator's matrix reads
+     (write_corpus: 66 .tst; DBs, tracks and goldens written by the
+     port on the CPU) run by the port's runner on the card with 4,096-
+     base read chunks, so merges run: every .tst must PASS, rc 0; (b)
+     one changed golden line must FAIL with rc 1; (c) phase 4's
+     `validate -r reads.fq -f asm.fa` and `validate -d reads.kreeq -f
+     asm.fa` on phase 6's DB, each a .tst whose line 2 names phase 4's
+     stdout as the golden: both must PASS (walls beside phase 4's); (d)
+     `kreeq warmup` at its default shapes in this process, where every
+     kernel must launch, and as a fresh process (its wall).
+The fifth-to-last line is a JSON object of phase 12's records, the
+fourth-to-last one of phase 10's, the third-to-last one of phase 11's;
+the second-to-last one with each kernel's launches (and its launches in
+phases 10, 11 and 12), error, times, bound and shape; the last is
+{"ok": true, "device": {...}}.  Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -237,6 +249,136 @@ def make_inputs(rng, genome_mbp: float, coverage: float, path: str,
                 fh.write(out.tobytes())
     read_bases = sum(int(nreads * n / total) for n in sizes) * READ_LEN
     return fa, fq, read_bases, kcount
+
+
+def _mutate(rng, seq: str, snv: int, ins: int, dele: int) -> str:
+    """`seq` with the planted SNV, then INS, then DEL at those offsets."""
+    s = list(seq)
+    s[snv] = "ACGT"[("ACGT".index(s[snv]) + 1 + int(rng.integers(0, 3)))
+                    % 4]
+    s.insert(ins, "ACGT"[int(rng.integers(0, 4))])
+    del s[dele]
+    return "".join(s)
+
+
+def _reads(rng, genome: str, n: int, length: int, err: float) -> list:
+    """`n` reads of `length` bases from random places of `genome`, half
+    reverse-complemented, with substitutions at rate `err`."""
+    g = np.frombuffer(genome.encode(), np.uint8)
+    codes = np.searchsorted(np.frombuffer(b"ACGT", np.uint8), g)
+    starts = rng.integers(0, len(codes) - length + 1, n)
+    reads = codes[starts[:, None] + np.arange(length)]
+    rc = rng.random(n) < 0.5
+    reads[rc] = 3 - reads[rc, ::-1]
+    hit = rng.random(reads.shape) < err
+    reads[hit] = (reads[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+    return [LUT[r].tobytes().decode() for r in reads]
+
+
+def write_corpus(root: str, seed: int, cli) -> None:
+    """A golden-corpus tree under `root`: testFiles/ with every name the
+    matrix of cli/generate_tests.py reads, and an empty validateFiles/.
+
+    Assemblies and reads come from `seed`: random1 (FASTA, .fasta.gz,
+    a GFA with a path, links and a segment outside it), random1/2
+    FASTQ and .fastq.gz, random2.fasta, random3 (.fasta and .fasta.gz:
+    IUPAC bases, an N run, a contig shorter than k), random5/11/12
+    FASTA and FASTQ, random6-10 FASTQ,
+    to_correct FASTA and FASTQ (a planted SNV, INS and DEL), and
+    decompressor1.fasta.  `cli(argv)` writes the DBs (test1, test2 and
+    random5-12.kreeq; random11 at k = 31, random12 at k = 32) and the
+    two .bkwig tracks, as the CLI a caller passes in.
+
+    Ten of the files are validated (50 .tst), so test.50 is the union,
+    whose 8 lines the KNOWN_DIFF pin of test.50's line 21
+    (validate_runner.py) cannot touch."""
+    rng = np.random.default_rng(seed)
+    tf = os.path.join(root, "testFiles")
+    os.makedirs(tf)
+    os.makedirs(os.path.join(root, "validateFiles"))
+
+    def path(name: str) -> str:
+        return os.path.join(tf, name)
+
+    def genome(n: int) -> str:
+        return LUT[rng.integers(0, 4, n)].tobytes().decode()
+
+    def fasta(name: str, records) -> None:
+        text = "".join(f">{h}\n{s}\n" for h, s in records)
+        with open(path(name), "w") as fh:
+            fh.write(text)
+
+    def fastq(name: str, reads) -> None:
+        text = "".join(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n"
+                       for i, r in enumerate(reads))
+        with open(path(name), "w") as fh:
+            fh.write(text)
+
+    def gz(name: str) -> None:
+        with open(path(name), "rb") as src, \
+                gzip.open(path(name + ".gz"), "wb") as dst:
+            dst.write(src.read())
+
+    g1 = genome(1600)
+    asm1 = _mutate(rng, g1[:1500], 300, 700, 1100)
+    fasta("random1.fasta", [("chr1", asm1[:900]), ("chr2", asm1[900:])])
+    with open(path("random1.gfa"), "w") as fh:
+        fh.write(f"H\tVN:Z:1.2\nS\tseg1\t{asm1[:700]}\nS\tseg2\t"
+                 f"{asm1[700:1300]}\nS\tseg3\t{asm1[1300:]}\n"
+                 "L\tseg1\t+\tseg2\t+\t0M\nL\tseg2\t+\tseg3\t-\t0M\n"
+                 "P\tpath1\tseg1+,seg2+\t*\n")
+    fastq("random1.fastq", _reads(rng, g1, 160, 100, 0.004))
+    fastq("random2.fastq", _reads(rng, g1, 120, 100, 0.01))
+    fasta("random2.fasta", [("ctg1", _mutate(rng, g1[200:1000], 50, 400,
+                                             700)), ("ctg2", g1[1000:])])
+    iupac = list(_mutate(rng, g1[100:1300], 200, 500, 900))
+    iupac[400:403] = "RYK"
+    iupac[800:812] = "N" * 12
+    fasta("random3.fasta", [("seq1", "".join(iupac)),
+                            ("tiny", g1[:15]), ("seq2", g1[1300:1560])])
+    for name in ("random1.fasta", "random1.fastq", "random2.fastq",
+                 "random3.fasta"):
+        gz(name)
+
+    # subgraph DBs: random5 at several depths and error rates (random9
+    # and random10 hold a second haplotype too), random11 and 12 at
+    # k = 31 and 32
+    g5 = genome(700)
+    fasta("random5.fasta", [("scaffold1", _mutate(rng, g5, 150, 350, 520))])
+    g5b = _mutate(rng, g5, 250, 450, 600)
+    for i, (n, err, alt) in enumerate(((70, 0.002, 0), (30, 0.01, 0),
+                                       (120, 0.005, 0), (50, 0.0, 0),
+                                       (60, 0.003, 30), (90, 0.008, 60)),
+                                      start=5):
+        reads = _reads(rng, g5, n, 100, err)
+        reads += _reads(rng, g5b, alt, 100, err) if alt else []
+        fastq(f"random{i}.fastq", reads)
+    for i in (11, 12):
+        g = genome(600)
+        fasta(f"random{i}.fasta", [(f"ctg{i}", _mutate(rng, g, 120, 300,
+                                                       450))])
+        fastq(f"random{i}.fastq", _reads(rng, g, 80, 100, 0.003))
+
+    g6 = genome(1200)
+    fasta("to_correct.fasta",
+          [("sequence1", _mutate(rng, g6[:700], 200, 400, 600)),
+           ("sequence2", g6[700:])])
+    fastq("to_correct.fastq", _reads(rng, g6, 240, 100, 0.0))
+    fasta("decompressor1.fasta", [("chr1", asm1[:900]),
+                                  ("chr2", asm1[900:])])
+    with open(path("decompressor1.bed"), "w") as fh:
+        fh.write("chr1\t10\t60\nchr2\t100\t130\nchr1\t700\t720\n")
+
+    dbs = [("test1", "random1", 21), ("test2", "random2", 21)]
+    dbs += [(f"random{i}", f"random{i}", 21) for i in range(5, 11)]
+    dbs += [("random11", "random11", 31), ("random12", "random12", 32)]
+    for db, reads, k in dbs:
+        cli(["kreeq", "validate", "-r", path(reads + ".fastq"), "-k",
+             str(k), "-o", path(db + ".kreeq")])
+    cli(["kreeq", "validate", "-r", path("random1.fastq"), "-f",
+         path("decompressor1.fasta"), "-o", path("decompressor1.bkwig")])
+    cli(["kreeq", "validate", "-r", path("random2.fastq"), "-f",
+         path("random3.fasta"), "-o", path("decompressor2.bkwig")])
 
 
 # ---------------------------------------------------------------------------
@@ -799,7 +941,7 @@ def phase_end_to_end(fq, fa, read_bases, kcount, ingest_s, device):
             raise AssertionError(f"implausible QV row {row}")
     if not lines[0].startswith("DBG Summary statistics:"):
         raise AssertionError("no DB summary")
-    return launches, out
+    return launches, out, wall
 
 
 def phase_cuda_vs_cpu(seed: int):
@@ -1930,6 +2072,189 @@ def phase_sharded(fq, fa, tmp, validate_out, ooc, card, device):
     return total, report
 
 
+RUNNER_CHUNK = 4096  # bases a read chunk in phase 12's corpus: B2 runs
+KERNEL_KEYS = tuple(key for _n, key, _s, _t, _p in KERNELS)
+
+
+def run_runner(args, keys=()):
+    """The port's golden harness, in-process on `args`, as a main path:
+    the launch counts are set to 0 just before it and read just after,
+    and every kernel in `keys` must have launched.  Returns (stdout,
+    exit code, wall seconds, launches)."""
+    import torch
+
+    from kreeq_tpu_torch.cli import validate_runner
+    from kreeq_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    buf = io.StringIO()
+    rc = None
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        try:
+            validate_runner.main(list(args))
+        except SystemExit as e:
+            rc = e.code
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check_launches(launches, keys, f"runner {args}")
+    return buf.getvalue(), rc, wall, launches
+
+
+def _passed(out: str, n: int, what: str) -> None:
+    lines = out.splitlines()
+    bad = [ln for ln in lines if not ln.startswith("\033[0;32mPASS\033[0m ")]
+    if len(lines) != n or bad:
+        raise AssertionError(f"{what}: {len(lines)} lines for {n} tests, "
+                             f"not passed: {bad[:6]}")
+
+
+WARMUP_LINE = re.compile(r"warmup: (\d+) programs compiled/cached in "
+                         r"([0-9.]+)s \(k=21, chunk=8388608, "
+                         r"window=4194304\)")
+
+
+def phase_runner(fq, fa, tmp, validate_out, wall4, seed, device):
+    """Phase 12: the golden harness and the warmup on the card.  (a) a
+    golden corpus from `seed` (chip_smoke.write_corpus), its DBs and
+    tracks and its goldens written by the port on the CPU
+    (cli/generate_tests), run on the card by the port's runner
+    (cli/validate_runner) at RUNNER_CHUNK bases a chunk: every test
+    must pass; (b) one golden line changed must fail; (c) phase 4's
+    `validate -r -f` and `validate -d reads.kreeq -f` at full size,
+    each a .tst naming phase 4's stdout as its external golden; (d)
+    `kreeq warmup` at its default shapes in this process (every kernel
+    must launch) and as a fresh process (its wall: the cold start)."""
+    from kreeq_tpu_torch.cli import generate_tests
+    from kreeq_tpu_torch.cli.main import run as cli_run
+
+    start = time.perf_counter()
+    rec = {}
+    total = {key: 0 for key in KERNEL_KEYS}
+
+    def add(launches):
+        for key in total:
+            total[key] += launches[key]
+
+    # (a)
+    root = os.path.join(tmp, "corpus")
+    vf = os.path.join(root, "validateFiles")
+    t0 = time.perf_counter()
+    with env(PLATFORM="cpu", CHUNK=RUNNER_CHUNK):
+        write_corpus(root, seed, run_cli)
+        stdin, sys.stdin = sys.stdin, io.StringIO("Y\n")
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                generate_tests.main()
+        finally:
+            os.chdir(cwd)
+            sys.stdin = stdin
+    cpu_s = time.perf_counter() - t0
+    n_tst = len(os.listdir(vf))
+    with env(PLATFORM=None, CHUNK=RUNNER_CHUNK):
+        out, rc, wall, launches = run_runner(
+            [vf], ("count", "merge", "probe_qv", "probe_sorted"))
+    _passed(out, n_tst, "(a) the corpus on the card")
+    if rc != 0:
+        raise AssertionError(f"(a) runner exit code {rc}")
+    add(launches)
+    rec["corpus"] = {"tests": n_tst, "passed": n_tst, "rc": rc,
+                     "cpu_s": cpu_s, "wall_s": wall, "launches": launches}
+    log(f"[12 runner] (a) {n_tst} .tst written on the CPU (corpus, DBs, "
+        f"tracks and goldens) in {cpu_s:.2f} s, all {n_tst} PASS on the "
+        f"card in {wall:.2f} s (rc 0); launches {launches}")
+
+    # (b)
+    with open(os.path.join(vf, "test.0.tst")) as fh:
+        lines = fh.read().split("\n")
+    lines[3] = lines[3].replace("kmers: ", "kmers: 1")
+    planted = os.path.join(root, "planted", "test.0.tst")
+    os.makedirs(os.path.dirname(planted))
+    with open(planted, "w") as fh:
+        fh.write("\n".join(lines))
+    with env(PLATFORM=None, CHUNK=RUNNER_CHUNK):
+        out, rc, wall, launches = run_runner([planted])
+    fail = f"\033[0;31mFAIL\033[0m {planted} expected output did not match"
+    if rc != 1 or not out.startswith(fail):
+        raise AssertionError(f"(b) planted line: rc {rc}, stdout {out!r}")
+    add(launches)
+    rec["planted"] = {"rc": rc, "wall_s": wall}
+    log(f"    (b) a changed golden line: FAIL, rc {rc}")
+
+    # (c) and (d) on the card at the default chunk
+    os.environ.pop("KREEQ_TPU_PLATFORM", None)
+    db = os.path.join(tmp, "reads.kreeq")
+    full = os.path.join(tmp, "full")
+    os.makedirs(full)
+    golden = os.path.join(full, "phase4.out")
+    with open(golden, "w") as fh:
+        fh.write(validate_out)
+    rec["full"] = []
+    for name, cmd, keys in (
+            ("validate_r", f"kreeq validate -r {fq} -f {fa} -k {K}",
+             ("count", "merge", "probe_qv")),
+            ("validate_d", f"kreeq validate -d {db} -f {fa}",
+             ("probe_qv",))):
+        tst = os.path.join(full, name + ".tst")
+        with open(tst, "w") as fh:
+            fh.write(f"{cmd}\n{golden}\n")
+        out, rc, wall, launches = run_runner([tst], keys)
+        _passed(out, 1, f"(c) {name}")
+        add(launches)
+        rec["full"].append({"tst": name, "cmd": cmd, "rc": rc,
+                            "wall_s": wall, "launches": launches})
+        log(f"    (c) {name} `{cmd.split(' ', 3)[-1][:60]}...` PASS in "
+            f"{wall:.2f} s (phase 4's wall {wall4:.2f} s); launches "
+            f"{launches}")
+    rec["phase4_wall_s"] = wall4
+
+    # (d)
+    from kreeq_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_run(["kreeq", "warmup"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check_launches(launches, KERNEL_KEYS, "warmup")
+    m = WARMUP_LINE.fullmatch(buf.getvalue().splitlines()[-1])
+    if rc != 0 or not m:
+        raise AssertionError(f"warmup: rc {rc}, {buf.getvalue()!r}")
+    add(launches)
+    rec["warmup"] = {"programs": int(m.group(1)), "s": float(m.group(2)),
+                     "wall_s": wall, "launches": launches}
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "kreeq_tpu_torch.cli.main",
+                          "warmup"], cwd=here, capture_output=True,
+                         text=True, timeout=600)
+    wall_p = time.perf_counter() - t0
+    last = res.stdout.splitlines()[-1] if res.stdout.strip() else ""
+    mp = WARMUP_LINE.fullmatch(last)
+    if res.returncode != 0 or not mp:
+        raise AssertionError(f"warmup process: rc {res.returncode}, "
+                             f"{res.stdout[-500:]!r} {res.stderr[-2000:]}")
+    # each program's seconds in the fresh process, from its stderr
+    ticks = [(t.group(1), float(t.group(2))) for t in re.finditer(
+        r"warmup: (.+) \(([0-9.]+)s\)$", res.stderr, re.MULTILINE)]
+    rec["warmup_process"] = {"programs": int(mp.group(1)),
+                             "s": float(mp.group(2)), "wall_s": wall_p,
+                             "ticks": ticks}
+    rec["phase_s"] = time.perf_counter() - start
+    log(f"    (d) `kreeq warmup` in this process: {m.group(1)} programs "
+        f"in {m.group(2)} s (wall {wall:.2f} s); launches {launches}; as "
+        f"a fresh process: {mp.group(1)} programs in {mp.group(2)} s, "
+        f"wall {wall_p:.2f} s from the spawn; its slowest: "
+        f"{sorted(ticks, key=lambda t: -t[1])[:4]}; phase 12 in "
+        f"{rec['phase_s']:.1f} s")
+    return total, rec
+
+
 def _busy_s(events) -> float:
     """Seconds in which the card ran at least one kernel, copy or set,
     from the device events of a chrome trace."""
@@ -2051,7 +2376,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         res = phase_kernels(fq, fa, device)
         launches = {}
-        launches["validate"], validate_out = phase_end_to_end(
+        launches["validate"], validate_out, wall4 = phase_end_to_end(
             fq, fa, read_bases, kcount, res["ingest_s"], device)
         qv_rows = validate_out.splitlines()[-2:]
         phase_cuda_vs_cpu(args.seed)
@@ -2064,7 +2389,10 @@ def main() -> int:
                                               card, device)
         shard_launches, shard = phase_sharded(fq, fa, tmp, validate_out,
                                               ooc, card, device)
+        runner_launches, runner = phase_runner(fq, fa, tmp, validate_out,
+                                               wall4, args.seed, device)
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")
+    print(json.dumps({"runner": runner}))
     print(json.dumps({"out_of_core": ooc}))
     print(json.dumps({"sharded": shard}))
 
@@ -2077,7 +2405,8 @@ def main() -> int:
          # no one PyTorch call computes any of the five (PERF.md)
          "library_ms": None, "shape": res[name]["shape"],
          "ooc_launches": ooc_launches[key],
-         "sharded_launches": shard_launches[key]}
+         "sharded_launches": shard_launches[key],
+         "runner_launches": runner_launches[key]}
         for name, key, src, tpu, path in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

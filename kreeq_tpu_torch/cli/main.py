@@ -4,7 +4,8 @@ src/main.cpp).
 The parser is the JAX package's, whole: modes validate, union, subgraph
 (reference: src/main.cpp:61-65), and multi-value -r/-d consume following
 non-option arguments like the reference's optind loop (reference:
-src/main.cpp:169-179).  This port runs `validate` from reads (-r) or a
+src/main.cpp:169-179); `kreeq warmup` goes to cli/warmup.py before it,
+as in the JAX CLI.  This port runs `validate` from reads (-r) or a
 `.kreeq` DB (-d), with or without an assembly (-f), to stdout or to
 -o x.kreeq|bed|csvtable|kwig|bkwig|hist|gfa|gfa2|gfa.gz|gfa2.gz|vcf (and
 `-o vcf` to stdout), with --detect-anomalies; `union`; and `subgraph -d
@@ -185,6 +186,11 @@ class _Sink(io.TextIOBase):
 
 
 def run(argv: List[str]) -> int:
+    if len(argv) > 1 and argv[1] == "warmup":
+        # build the kernels and launch each once: the port's cold start
+        from .warmup import run as warmup_run
+
+        return warmup_run(argv)
     ui = parse_args(argv)
 
     import torch.distributed as dist
