@@ -108,11 +108,24 @@ non-zero and never prints the final line):
      stdout as the golden: both must PASS (walls beside phase 4's); (d)
      `kreeq warmup` at its default shapes in this process, where every
      kernel must launch, and as a fresh process (its wall).
-The fifth-to-last line is a JSON object of phase 12's records, the
-fourth-to-last one of phase 10's, the third-to-last one of phase 11's;
-the second-to-last one with each kernel's launches (and its launches in
-phases 10, 11 and 12), error, times, bound and shape; the last is
-{"ok": true, "device": {...}}.  Needs a CUDA device; imports no JAX.
+ 13. the entry points and the soak (entry.py, soak.py): (a)
+     entry()'s step on the card (B1, B4), its four numbers equal to the
+     same step on the CPU's plain versions; (b) dryrun_multichip(2), two
+     ranks sharing the card over gloo (B1, B5); (c) cli_golden_sharded
+     over phase 12's corpus on 2 ranks: its QV, union, subgraph and VCF
+     .tst must pass; (d) `python -m kreeq_tpu_torch.soak` as
+     subprocesses at 10 Mbp, 10x, k = 31, with the JAX soak's caps in
+     the same ratio to the genome (MAX_TABLE_ROWS 5 * 10^6,
+     HOST_MERGE_ROWS 2.5 * 10^6) and a 3 Mbp VCF slice: every phase in
+     one attempt, every planted variant without a VCF row in a gap of
+     the reads, and the DB, the QV stdout, the .bkwig and the VCF equal
+     to the same commands run in core in this process.
+The sixth-to-last line is a JSON object of phase 13's records, the
+fifth-to-last one of phase 12's, the fourth-to-last one of phase 10's,
+the third-to-last one of phase 11's; the second-to-last one with each
+kernel's launches (and its launches in phases 10, 11, 12 and 13),
+error, times, bound and shape; the last is {"ok": true, "device":
+{...}}.  Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -2255,6 +2268,212 @@ def phase_runner(fq, fa, tmp, validate_out, wall4, seed, device):
     return total, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the entry points and the soak
+
+ENTRY_RANKS = 2  # ranks of (b) and (c), sharing the one card over gloo
+SOAK_MBP = 10  # genome of (d): the JAX soak's 100 Mbp cut to a tenth
+SOAK_COVERAGE = 10
+# the JAX soak's caps (5 * 10^7 and 2.5 * 10^7 rows at 100 Mbp) in the
+# same ratio to the genome, so the table windows and host merges engage
+SOAK_CAPS = {"MAX_TABLE_ROWS": 5_000_000, "HOST_MERGE_ROWS": 2_500_000}
+SOAK_VCF_SLICE = 3_000_000
+SOAK_TIMEOUT_S = 600
+
+
+def _descendants(pid: int) -> list:
+    """Every living descendant of `pid`, from /proc (the soak's phases
+    run in sessions of their own, out of reach of a group kill)."""
+    children = {}
+    for name in os.listdir("/proc"):
+        if name.isdigit():
+            try:
+                with open(f"/proc/{name}/stat") as fh:
+                    ppid = int(fh.read().rsplit(") ", 1)[1].split()[1])
+            except (OSError, ValueError, IndexError):
+                continue
+            children.setdefault(ppid, []).append(int(name))
+    out, todo = [], [pid]
+    while todo:
+        for child in children.get(todo.pop(), []):
+            out.append(child)
+            todo.append(child)
+    return out
+
+
+def run_soak(workdir: str) -> dict:
+    """`python -m kreeq_tpu_torch.soak workdir SOAK_MBP SOAK_COVERAGE` as
+    a subprocess under SOAK_CAPS, one attempt a phase; the record of its
+    last line.  On a failure or past SOAK_TIMEOUT_S it and every process
+    it started are killed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    environ = {**os.environ, **{f"KREEQ_TPU_{k}": str(v)
+                                for k, v in SOAK_CAPS.items()},
+               "KREEQ_TPU_SOAK_VCF_SLICE": str(SOAK_VCF_SLICE),
+               "KREEQ_TPU_SOAK_ATTEMPTS": "1",
+               "KREEQ_TPU_SOAK_COOLDOWN_S": "0",
+               "KREEQ_TPU_SOAK_STALL_S": "300"}
+    for name in ("PLATFORM", "CHUNK", "BUILD_CKPT", "SOAK_REUSE",
+                 "SOAK_MIRROR"):
+        environ.pop(f"KREEQ_TPU_{name}", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kreeq_tpu_torch.soak", workdir,
+         str(SOAK_MBP), str(SOAK_COVERAGE)], cwd=here, env=environ,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        out, _ = proc.communicate(timeout=SOAK_TIMEOUT_S)
+    finally:
+        for pid in _descendants(proc.pid) + [proc.pid]:
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
+        proc.wait()
+    lines = out.splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"(d) the soak exited {proc.returncode}:\n"
+                             + "\n".join(lines[-30:]))
+    for line in lines[:-1]:
+        log(f"    {line}")
+    return json.loads(lines[-1].split(" ", 1)[1])
+
+
+def phase_entry(tmp, device):
+    """Phase 13: the entry points (entry.py) and the soak
+    (soak.py) on the card.  (a) entry()'s step on the card and its four
+    numbers against the same step on the CPU's plain versions; (b)
+    dryrun_multichip(ENTRY_RANKS), its ranks sharing the card over gloo;
+    (c) cli_golden_sharded over phase 12's corpus on as many ranks: the
+    four .tst must pass; (d) the soak at SOAK_MBP Mbp, SOAK_COVERAGE x,
+    k = 31, under SOAK_CAPS, as subprocesses: every phase in one
+    attempt, every planted variant without a VCF row in a gap of the
+    reads, and the DB, the QV stdout, the .bkwig and the VCF equal to
+    the same commands run in core in this process, with no caps and no
+    checkpoint, on the same files.  Returns (launches of (a) and (b)
+    summed, the record)."""
+    import torch
+
+    from kreeq_tpu_torch import entry
+    from kreeq_tpu_torch.ops import kernels
+
+    start = time.perf_counter()
+    rec = {}
+
+    # (a)
+    fn, args = entry.entry()
+    if any(a.device != device for a in args):
+        raise AssertionError(f"(a) entry() put its inputs on "
+                             f"{[str(a.device) for a in args]}")
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [int(x) for x in fn(*args)]
+    wall = time.perf_counter() - t0
+    la = dict(kernels.LAUNCHES)
+    check_launches(la, ("count", "probe_select"), "entry()")
+    want = [int(x) for x in fn(*(a.cpu() for a in args))]
+    if got != want:
+        raise AssertionError(f"(a) entry() on the card {got}, on the CPU "
+                             f"{want}")
+    # the step again, warm: its own time, not its first call's
+    warm_ms = cuda_ms(lambda: fn(*args))
+    rec["entry"] = {"numbers": got, "wall_s": wall, "warm_ms": warm_ms,
+                    "launches": la}
+    log(f"[13 entry] (a) entry(): (n, valid, missing, edge-missing) = "
+        f"{got} on the card, equal to the CPU's plain versions; first "
+        f"call {wall * 1e3:.1f} ms, warm {warm_ms:.2f} ms; launches {la}")
+
+    # (b)
+    res = entry.dryrun_multichip(ENTRY_RANKS)
+    lb = res["launches"]
+    check_launches(lb, ("count", "probe_sorted"), "dryrun_multichip")
+    if any(r["device"] == "cpu" for r in res["per_rank"]):
+        raise AssertionError(f"(b) a rank ran on the CPU: {res}")
+    rec["dryrun"] = {k: res[k] for k in ("ranks", "sums", "launches",
+                                         "wall_s")}
+    rec["dryrun"]["backend"] = res["per_rank"][0]["backend"]
+    log(f"    (b) dryrun_multichip({ENTRY_RANKS}): (tot, missing, "
+        f"edge-missing) = {res['sums']} over {ENTRY_RANKS} ranks "
+        f"({rec['dryrun']['backend']}), {res['wall_s']:.2f} s from the "
+        f"spawn; launches {lb}")
+
+    # (c)
+    t0 = time.perf_counter()
+    ran = entry.cli_golden_sharded(os.path.join(tmp, "corpus"),
+                                   ENTRY_RANKS)
+    if ran != 4:
+        raise AssertionError(f"(c) {ran} .tst run, not 4")
+    picks = [os.path.basename(t) for t in
+             entry.golden_picks(os.path.join(tmp, "corpus"))]
+    rec["golden_sharded"] = {"tst": picks, "passed": ran,
+                             "wall_s": time.perf_counter() - t0}
+    log(f"    (c) cli_golden_sharded: {picks} PASS as {ENTRY_RANKS} ranks "
+        f"under KREEQ_TPU_FORCE_SHARDED=1 in "
+        f"{rec['golden_sharded']['wall_s']:.2f} s")
+
+    # (d)
+    wd = os.path.join(tmp, "soak")
+    t0 = time.perf_counter()
+    soak = run_soak(wd)
+    soak_s = time.perf_counter() - t0
+    if soak.get("soak") != "complete":
+        raise AssertionError(f"(d) {soak}")
+    if any(p["attempts"] != 1 for p in soak["phases"].values()):
+        raise AssertionError(f"(d) a phase ran again: {soak['phases']}")
+    found, total = soak["recall"]
+    if found != total - len(soak["missed"]) or any(
+            m[3] != 0 for m in soak["missed"]):
+        raise AssertionError(f"(d) missed a variant the reads hold: "
+                             f"{soak['missed']}")
+    if not soak["table_windows"] or soak["host_merges"]["build"] < 1 \
+            or soak["ckpt_parts"] < 2:
+        raise AssertionError(f"(d) not out of core: {soak}")
+    with env(PLATFORM=None, CHUNK=None, BUILD_CKPT=None,
+             MAX_TABLE_ROWS=None, HOST_MERGE_ROWS=None):
+        incore = {}
+        db = os.path.join(wd, "incore.kreeq")
+        for name, argv, keys in (
+                ("build", ["-r", os.path.join(wd, "reads.fastq"), "-k", "31",
+                           "-o", db], ("count", "merge")),
+                ("qv", ["-d", db, "-f", os.path.join(wd, "asm.fasta"), "-o",
+                        os.path.join(wd, "incore.bkwig")],
+                 ("probe_select",)),
+                ("vcf", ["-d", db, "-f", os.path.join(wd, "asm10.fasta"),
+                         "-o", os.path.join(wd, "incore.vcf"),
+                         "--search-depth", "50", "--max-span", "32"],
+                 ("probe_sorted",))):
+            out, launches, _ph, wall, _peak = drive(
+                ["kreeq", "validate", *argv], keys, f"(d) in core {name}",
+                device)
+            incore[name] = {"wall_s": wall, "launches": launches}
+            if name == "qv":
+                with open(os.path.join(wd, "phase_qv.out")) as fh:
+                    if fh.read() != out:
+                        raise AssertionError("(d) the soak's QV stdout "
+                                             "differs from the in-core one")
+    same_output(os.path.join(wd, "soak.kreeq"), db)
+    same_output(os.path.join(wd, "asm.bkwig"),
+                os.path.join(wd, "incore.bkwig"))
+    same_output(os.path.join(wd, "asm10.vcf"),
+                os.path.join(wd, "incore.vcf"))
+    soak["wall_s"] = soak_s
+    soak["in_core"] = incore
+    rec["soak"] = soak
+    rec["phase_s"] = time.perf_counter() - start
+    log(f"    (d) soak at {SOAK_MBP} Mbp, {SOAK_COVERAGE}x, caps "
+        f"{SOAK_CAPS}: {soak_s:.1f} s; phases "
+        + ", ".join(f"{n} {p['wall_s']:.1f} s ({p['peak_rss_gb']:.1f} GB)"
+                    for n, p in soak["phases"].items())
+        + f"; recall {found}/{total}, missed {soak['missed']}; "
+        f"{soak['ckpt_parts']} parts, {soak['ckpt_merges']} merges, host "
+        f"merges {soak['host_merges']}, {soak['table_windows']}; DB, QV "
+        f"stdout, .bkwig and VCF equal to the in-core run ("
+        + ", ".join(f"{n} {r['wall_s']:.1f} s" for n, r in incore.items())
+        + f"); phase 13 in {rec['phase_s']:.1f} s")
+    total_launches = {key: la[key] + lb[key] for key in la}
+    return total_launches, rec
+
+
 def _busy_s(events) -> float:
     """Seconds in which the card ran at least one kernel, copy or set,
     from the device events of a chrome trace."""
@@ -2391,7 +2610,9 @@ def main() -> int:
                                               ooc, card, device)
         runner_launches, runner = phase_runner(fq, fa, tmp, validate_out,
                                                wall4, args.seed, device)
+        entry_launches, entry = phase_entry(tmp, device)
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")
+    print(json.dumps(entry))
     print(json.dumps({"runner": runner}))
     print(json.dumps({"out_of_core": ooc}))
     print(json.dumps({"sharded": shard}))
@@ -2406,7 +2627,8 @@ def main() -> int:
          "library_ms": None, "shape": res[name]["shape"],
          "ooc_launches": ooc_launches[key],
          "sharded_launches": shard_launches[key],
-         "runner_launches": runner_launches[key]}
+         "runner_launches": runner_launches[key],
+         "entry_launches": entry_launches[key]}
         for name, key, src, tpu, path in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

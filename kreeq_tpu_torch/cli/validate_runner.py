@@ -84,6 +84,27 @@ def run_command(cmd: str) -> str:
     return buf.getvalue()
 
 
+def golden(lines: List[str]) -> str:
+    """The expected stdout of a .tst's lines: the file that line 2
+    names, where it names one that exists, else the lines after it."""
+    if len(lines) > 1 and lines[1].strip() != "embedded" \
+            and os.path.exists(lines[1].strip()):
+        with open(lines[1].strip()) as fh:
+            return fh.read()
+    return "\n".join(lines[2:])
+
+
+def compared(tst: str, actual: str, expected: str):
+    """(got, want): the lines of a .tst's stdout and of its golden, the
+    KNOWN_DIFF pin of that .tst applied to the golden's."""
+    got = actual.rstrip("\n").splitlines()
+    want = expected.rstrip("\n").splitlines()
+    pinned = KNOWN_DIFF.get(os.path.basename(tst), {})
+    if pinned and len(got) == len(want):
+        want = [pinned[i] if i in pinned else w for i, w in enumerate(want)]
+    return got, want
+
+
 def main(argv: List[str] = None) -> None:
     argv = argv if argv is not None else sys.argv[1:]
     argv = [a for a in argv if a != "-c"]
@@ -125,18 +146,7 @@ def main(argv: List[str] = None) -> None:
             continue
         finally:
             os.chdir(prev_cwd)
-        if len(lines) > 1 and lines[1].strip() != "embedded" \
-                and os.path.exists(lines[1].strip()):
-            with open(lines[1].strip()) as fh:
-                expected = fh.read()
-        else:
-            expected = "\n".join(lines[2:])
-        got = actual.rstrip("\n").splitlines()
-        want = expected.rstrip("\n").splitlines()
-        pinned = KNOWN_DIFF.get(os.path.basename(tst), {})
-        if pinned and len(got) == len(want):
-            want = [pinned[i] if i in pinned else w
-                    for i, w in enumerate(want)]
+        got, want = compared(tst, actual, golden(lines))
         if got != want:
             print(f"{RED}FAIL{RESET} {tst} expected output did not match "
                   "actual output")

@@ -213,10 +213,14 @@ def parallel_host_merge(a, b):
 
 
 def _timed_host_merge(a, b):
+    from ..utils import log
+
     t0 = time.perf_counter()
     out = parallel_host_merge(a, b)
-    OOC_STATS["host_merge"].append((len(a[0]), len(b[0]), len(out[0]),
-                                    time.perf_counter() - t0))
+    dt = time.perf_counter() - t0
+    OOC_STATS["host_merge"].append((len(a[0]), len(b[0]), len(out[0]), dt))
+    log.verbose(f"host merge {len(a[0])}+{len(b[0])} -> {len(out[0])} rows "
+                f"in {dt:.2f}s")
     return out
 
 
@@ -503,7 +507,12 @@ class KmerTable:
         if pin:
             OOC_STATS["pin"].append((sum(a.nbytes for a in arrs),
                                      time.perf_counter() - t0))
-        return cls(k, *arrs, compute=device)
+        table = cls(k, *arrs, compute=device)
+        from ..utils import log
+
+        log.verbose(f"table of {len(table)} rows held on the host in "
+                    f"{len(table.window_ranges())} windows")
+        return table
 
     @classmethod
     def placed(cls, k: int, part, device) -> "KmerTable":

@@ -11,8 +11,9 @@ the generic probe misaligned rows); and
 the subgraph searches' neighbour scan (plain torch ops) on the card
 against the CPU; B4 and B5 on the uploaded windows of a
 host-resident table, each with its own directory; the sharded path's
-owners and routing on the card against the CPU, and a 1-rank NCCL
-build against the plain build.  Needs a
+owners and routing on the card against the CPU, a 1-rank NCCL
+build against the plain build, and the flagship step
+(entry.entry) on the card against its run on the CPU.  Needs a
 CUDA device (the `gpu` marker); run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m gpu
@@ -808,3 +809,21 @@ def test_one_rank_build_above_cap_gathers_on_host(cuda, one_rank, tmp_path,
     assert got.on_host and len(want) > 10_000
     for g, w in zip(got.to_numpy(), want.to_numpy()):
         assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+def test_entry_step_cuda_equals_cpu(cuda, monkeypatch):
+    """entry()'s step on the card (B1, then B4 through the table's
+    directory) gives the four numbers of the same step on the CPU's
+    plain versions, and launches each kernel once."""
+    from kreeq_tpu_torch.entry import entry
+    from kreeq_tpu_torch.ops import kernels
+
+    monkeypatch.delenv("KREEQ_TPU_PLATFORM", raising=False)
+    fn, args = entry()
+    assert all(a.device.type == "cuda" for a in args)
+    kernels.reset_launches()
+    got = [int(x) for x in fn(*args)]
+    assert kernels.LAUNCHES["count"] == 1
+    assert kernels.LAUNCHES["probe_select"] == 1
+    assert got == [int(x) for x in fn(*(a.cpu() for a in args))]
+    assert got[0] > 0 and got[1] == args[1].shape[0] - 21 + 1

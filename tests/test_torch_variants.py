@@ -387,3 +387,34 @@ def test_detect_anomalies_matches_jax(tmp_path):
     got = [detect_anomalies(dbg, seg) for seg in dbg.genome.segments]
     assert got == want
     assert sum(len(r) for r in want) >= 4 and [] in want
+
+
+@pytest.mark.parametrize("k", [11, 17, 21, 32])
+def test_segment_end_default_window_matches_jax_without_record(
+        tmp_path, monkeypatch, k):
+    """At the default scan window: an assembly record of 50 bases, 7 N
+    and 70 bases, whose two short segments hold branch points only in
+    their last k + 1 positions.  The JAX CLI's `-o vcf` raises an
+    IndexError on it (kreeq_tpu/core/variants.py:546-548); the port's
+    VCF of the whole assembly equals the JAX CLI's of the assembly
+    without that record."""
+    from kreeq_tpu.cli.main import run as jax_run
+    from kreeq_tpu_torch.cli.main import run
+
+    from .test_torch_cli import _stdout, _write_inputs
+
+    monkeypatch.delenv("KREEQ_TPU_VARIANTS_WINDOW", raising=False)
+    monkeypatch.setenv("KREEQ_TPU_PLATFORM", "cpu")
+    rp, ap = _write_inputs(tmp_path, 9)
+    # the genome _write_inputs draws first from its seed
+    genome = "".join(np.random.default_rng(9).choice(list("ACGT"), 2000))
+    whole = tmp_path / "whole.fa"
+    with open(ap) as fh:
+        whole.write_text(fh.read() + ">gap\n" + genome[600:650] + "N" * 7
+                         + genome[657:727] + "\n")
+    argv = ["kreeq", "validate", "-r", rp, "-k", str(k), "-o", "vcf", "-f"]
+    with pytest.raises(IndexError):
+        _stdout(jax_run, argv + [str(whole)])
+    want = _stdout(jax_run, argv + [ap])
+    assert len(want.splitlines()) > 10
+    assert _stdout(run, argv + [str(whole)]) == want
