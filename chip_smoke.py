@@ -120,10 +120,19 @@ non-zero and never prints the final line):
      one attempt, every planted variant without a VCF row in a gap of
      the reads, and the DB, the QV stdout, the .bkwig and the VCF equal
      to the same commands run in core in this process.
-The sixth-to-last line is a JSON object of phase 13's records, the
-fifth-to-last one of phase 12's, the fourth-to-last one of phase 10's,
-the third-to-last one of phase 11's; the second-to-last one with each
-kernel's launches (and its launches in phases 10, 11, 12 and 13),
+ 14. the bench (kreeq_tpu_torch/bench.py): `python -m
+     kreeq_tpu_torch.bench` as a fresh process under its watchdog's
+     deadline (KREEQ_TPU_BENCH_DEADLINE = 300 s): bench.py's count,
+     QV-probe, track-probe and merge stages at bench.py's shapes, the
+     CPU oracle built and run on this host; its last line must be
+     complete (no "incomplete"), with a value above 0, every stage exact
+     against its plain version, the QV window's #missing 0, and B1-B4
+     launched.
+The seventh-to-last line is the bench's last line (phase 14), the
+sixth-to-last a JSON object of phase 13's records, the fifth-to-last
+one of phase 12's, the fourth-to-last one of phase 10's, the
+third-to-last one of phase 11's; the second-to-last one with each
+kernel's launches (and its launches in phases 10, 11, 12, 13 and 14),
 error, times, bound and shape; the last is {"ok": true, "device":
 {...}}.  Needs a CUDA device; imports no JAX.
 """
@@ -140,13 +149,17 @@ import os
 import re
 import shutil
 import socket
-import statistics
 import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
+
+from kreeq_tpu_torch.ops.bounds import (bound_ms, compare, count_bound_ms,
+                                        cuda_ms, merge_bound_ms,
+                                        rows_floor_ms, sector_floor_ms,
+                                        touched_rows)
 
 K = 21
 GENOME_MBP = 12.0  # yeast scale
@@ -162,7 +175,6 @@ LUT = np.frombuffer(b"ACGTN", np.uint8)
 CUT_CPU_VS_CUDA = 100_000  # bases of phase 5's variants outputs
 CUT_VCF = 1_000_000  # bases of chr2 in phase 8's VCF run and phase 9
 PILE = 1_000_000  # records of phase 3's poly-A run
-HBM_BYTES_PER_S = 3.35e12  # the H100's peak memory rate (data sheet)
 
 # (name, LAUNCHES key, source, TPU kernel, the main path whose launches
 # the JSON line reports: phase 4's `-r -f` run, phase 6's track run or
@@ -398,40 +410,6 @@ def write_corpus(root: str, seed: int, cli) -> None:
 # helpers
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median milliseconds of fn() between CUDA events, after a warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def compare(name: str, got, want) -> float:
-    """Exact equality of two output tuples; returns the max abs error."""
-    import torch
-
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        if g.shape != w.shape or g.dtype != w.dtype:
-            raise AssertionError(f"{name}: {g.shape} {g.dtype} vs "
-                                 f"{w.shape} {w.dtype}")
-        if not torch.equal(g, w):
-            err = float((g.double() - w.double()).abs().max())
-            raise AssertionError(f"{name}: kernel differs from plain "
-                                 f"version (max abs err {err})")
-    return 0.0
-
-
 def run_cli(argv):
     from kreeq_tpu_torch.cli.main import run
 
@@ -511,15 +489,10 @@ def head_fasta(src: str, dst: str, name: str, nbases: int) -> str:
 def phase_card():
     import torch
 
+    from kreeq_tpu_torch.bench import card_line
+
     # no number of this run may stand without the card's name and limit
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        raise RuntimeError(f"nvidia-smi failed ({smi.returncode}): "
-                           f"{smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     log(card)
     log(f"[1 card] {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, "
@@ -542,99 +515,6 @@ def phase_build():
             name = m.group(2)[:int(m.group(1))]
         elif "registers" in line and name:
             log(f"    {name}: {line.split(':', 1)[1].strip()}")
-
-
-def bound_ms(nbytes: float) -> float:
-    """The least milliseconds to move `nbytes` at the H100's 3.35 TB/s."""
-    return nbytes / HBM_BYTES_PER_S * 1e3
-
-
-def real_rows(keys) -> int:
-    """Rows that hold a key: the rows whose counters must be read."""
-    from kreeq_tpu_torch.constants import SENTINEL
-
-    return int((keys != SENTINEL).sum())
-
-
-def merge_bound_ms(ka, kb) -> float:
-    """A merge's bound: every key read (8 B), the counters of the real
-    rows only (72 B; a SENTINEL row yields no row), every output row
-    written (80 B)."""
-    m = ka.shape[0] + kb.shape[0]
-    return bound_ms(8 * m + 72 * (real_rows(ka) + real_rows(kb)) + 80 * m)
-
-
-def count_bound_ms(skeys) -> float:
-    """count_runs' bound: every key read (8 B), the edge byte of the
-    real records only, every output row written (80 B)."""
-    p = skeys.shape[0]
-    return bound_ms(8 * p + real_rows(skeys) + 80 * p)
-
-
-def touched_rows(tkeys, qkeys) -> int:
-    """Distinct table rows that the queries find: the rows a probe must
-    read at the least."""
-    import torch
-
-    from kreeq_tpu_torch.constants import SENTINEL
-
-    row = torch.searchsorted(tkeys, qkeys).clamp_(max=tkeys.shape[0] - 1)
-    found = (tkeys[row] == qkeys) & (qkeys != SENTINEL)
-    return int(torch.unique(row[found]).shape[0])
-
-
-def _distinct(x) -> int:
-    import torch
-
-    return int(torch.unique(x).shape[0])
-
-
-def _search_sectors(tkeys, index, qkeys):
-    """What the directory searches of `qkeys` read at the least: the
-    distinct 32-byte sectors of each searched query's two directory
-    entries and of the key at the row its search ends on (SENTINEL
-    queries and keys past the directory are not searched).  Returns
-    (sectors, searched mask, found mask over the searched, found rows)."""
-    import torch
-
-    from kreeq_tpu_torch.constants import SENTINEL
-    from kreeq_tpu_torch.ops.index import bucket_of
-
-    starts, shift = index
-    b = bucket_of(qkeys, shift)
-    keep = (qkeys != SENTINEL) & (b < starts.shape[0] - 1)
-    q, b = qkeys[keep], b[keep]
-    row = torch.searchsorted(tkeys, q).clamp_(max=max(tkeys.shape[0] - 1,
-                                                      0))
-    found = tkeys[row] == q
-    sectors = _distinct(torch.cat([b, b + 1]) >> 2) + _distinct(row >> 2)
-    return sectors, keep, found, row[found]
-
-
-def sector_floor_ms(tkeys, index, qkeys, qctx, streamed: int) -> float:
-    """A validate probe's floor under random access: the 32-byte sectors
-    of each array that the queries touch at the least, each counted
-    once (the search's, then a found row's cov and the fw or bw row of
-    each selected counter, 32 B a row), plus the `streamed` bytes of
-    queries and outputs, at the H100's 3.35 TB/s."""
-    import torch
-
-    sectors, keep, found, frow = _search_sectors(tkeys, index, qkeys)
-    fctx = qctx[keep][found].to(torch.int64)
-    # a selector's sector: its row of fw (1-4) or of bw (5-8)
-    counters = [2 * frow[sel != 0] + (sel[sel != 0] > 4)
-                for sel in (fctx & 15, fctx >> 4)]
-    return bound_ms(32 * (sectors + _distinct(frow >> 2)
-                          + _distinct(torch.cat(counters))) + streamed)
-
-
-def rows_floor_ms(tkeys, index, qkeys, streamed: int) -> float:
-    """The generic probe's floor, as sector_floor_ms with each found row
-    read whole: its cov sector, its fw row and its bw row (32 B, one
-    sector each)."""
-    sectors, _keep, _found, frow = _search_sectors(tkeys, index, qkeys)
-    return bound_ms(32 * (sectors + _distinct(frow >> 2)
-                          + 2 * _distinct(frow)) + streamed)
 
 
 @contextlib.contextmanager
@@ -2474,6 +2354,72 @@ def phase_entry(tmp, device):
     return total_launches, rec
 
 
+BENCH_DEADLINE_S = 300  # phase 14's deadline for the bench's watchdog
+BENCH_STAGES = ("count", "probe_qv", "probe_track", "merge")
+
+
+def phase_bench():
+    """Phase 14: `python -m kreeq_tpu_torch.bench` as a fresh process
+    under its watchdog, with the deadline BENCH_DEADLINE_S: its last
+    line must be complete, with a value above 0, every stage exact, the
+    QV window's #missing 0 and B1-B4 launched.  On a failure or past the
+    deadline it and every process it started are killed.  Returns (the
+    bench's launches, its last line)."""
+    import torch
+
+    torch.cuda.empty_cache()  # the bench's process needs the card too
+    here = os.path.dirname(os.path.abspath(__file__))
+    environ = {**os.environ,
+               "KREEQ_TPU_BENCH_DEADLINE": str(BENCH_DEADLINE_S)}
+    environ.pop("KREEQ_TPU_PLATFORM", None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kreeq_tpu_torch.bench"], cwd=here,
+        env=environ, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_DEADLINE_S + 60)
+    finally:
+        for pid in _descendants(proc.pid) + [proc.pid]:
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
+        proc.wait()
+    wall = time.perf_counter() - t0
+    lines = out.splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"the bench exited {proc.returncode}:\n"
+                             + "\n".join((out + err).splitlines()[-30:]))
+    for line in err.splitlines():
+        log(f"    | {line}")
+    last = json.loads(lines[-1])
+    extra = last["extra"]
+    if extra.get("incomplete") or not last["value"] > 0:
+        raise AssertionError(f"the bench did not complete: {lines[-1]}")
+    stages = extra["stages"]
+    if not all(stages[name]["exact"] for name in BENCH_STAGES) \
+            or stages["probe_qv"]["missing"] != 0:
+        raise AssertionError(f"the bench's stages: {stages}")
+    launches = extra["launches"]
+    check_launches(launches, ("count", "merge", "probe_qv", "probe_select"),
+                   "bench")
+    log(f"[14 bench] {last['value']:.0f} {last['unit']} "
+        f"({last['vs_baseline']:.3f}x the CPU oracle on "
+        f"{extra['host_cores']} cores); steps (median ms): count "
+        f"{extra['count_step_ms']:.3f}, directory {extra['index_ms']:.3f}, "
+        f"QV {extra['probe_qv_step_ms']:.3f}, track "
+        f"{extra['probe_track_step_ms']:.3f}, merge "
+        f"{extra['merge_step_ms']:.3f}; kernels "
+        + ", ".join(f"{stages[s]['kernel']} {stages[s]['kernel_ms']:.3f} ms "
+                    f"(bound {stages[s]['bound_ms']:.3f} ms, "
+                    f"{stages[s]['share_of_bound']:.1%})"
+                    for s in BENCH_STAGES)
+        + f"; exact; launches {launches}; {len(lines)} lines in "
+        f"{wall:.1f} s")
+    return launches, last
+
+
 def _busy_s(events) -> float:
     """Seconds in which the card ran at least one kernel, copy or set,
     from the device events of a chrome trace."""
@@ -2611,7 +2557,9 @@ def main() -> int:
         runner_launches, runner = phase_runner(fq, fa, tmp, validate_out,
                                                wall4, args.seed, device)
         entry_launches, entry = phase_entry(tmp, device)
+    bench_launches, bench = phase_bench()
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")
+    print(json.dumps(bench))
     print(json.dumps(entry))
     print(json.dumps({"runner": runner}))
     print(json.dumps({"out_of_core": ooc}))
@@ -2628,7 +2576,8 @@ def main() -> int:
          "ooc_launches": ooc_launches[key],
          "sharded_launches": shard_launches[key],
          "runner_launches": runner_launches[key],
-         "entry_launches": entry_launches[key]}
+         "entry_launches": entry_launches[key],
+         "bench_launches": bench_launches[key]}
         for name, key, src, tpu, path in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,155 @@
+"""Timing, exactness and least-time bounds of the kernels on the card.
+
+One copy of the arithmetic that the bench (kreeq_tpu_torch/bench.py)
+and chip_smoke.py both report beside a kernel's time:
+  cuda_times / cuda_ms - times of a call between CUDA events, after a
+                         warm-up;
+  compare              - exact equality of a kernel's outputs with its
+                         plain version's;
+  *_bound_ms           - the least time of a kernel: the bytes its
+                         inputs need (each input read once, each output
+                         written once; a SENTINEL row's key only, not
+                         its counters) at the H100's 3.35 TB/s;
+  sector_floor_ms,     - a probe's floor under random access: the
+  rows_floor_ms          32-byte sectors its reads touch, per array,
+                         each counted once.
+The bounds are computed from this run's inputs and work on either
+device; the timings need a CUDA device.
+"""
+
+from __future__ import annotations
+
+import statistics
+
+import torch
+
+from ..constants import SENTINEL
+from .index import bucket_of
+
+HBM_BYTES_PER_S = 3.35e12  # the H100's peak memory rate (data sheet)
+
+
+def cuda_times(fn, reps: int = 5) -> list:
+    """Milliseconds of each of `reps` calls of fn() between CUDA events,
+    after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds of fn() between CUDA events, after a warm-up."""
+    return statistics.median(cuda_times(fn, reps))
+
+
+def compare(name: str, got, want) -> float:
+    """Exact equality of two output tuples; returns the max abs error
+    (0.0: any other raises)."""
+    if any(t.is_cuda for t in got):
+        torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: {g.shape} {g.dtype} vs "
+                                 f"{w.shape} {w.dtype}")
+        if not torch.equal(g, w):
+            err = float((g.double() - w.double()).abs().max())
+            raise AssertionError(f"{name}: kernel differs from plain "
+                                 f"version (max abs err {err})")
+    return 0.0
+
+
+def bound_ms(nbytes: float) -> float:
+    """The least milliseconds to move `nbytes` at the H100's 3.35 TB/s."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def real_rows(keys) -> int:
+    """Rows that hold a key: the rows whose counters must be read."""
+    return int((keys != SENTINEL).sum())
+
+
+def merge_rows_bound_ms(rows: int, real: int) -> float:
+    """A merge's bound from its row counts: every key of the `rows`
+    input rows read (8 B), the counters of the `real` ones only (72 B; a
+    SENTINEL row yields no row), every output row written (80 B)."""
+    return bound_ms(8 * rows + 72 * real + 80 * rows)
+
+
+def merge_bound_ms(ka, kb) -> float:
+    """merge_rows_bound_ms of the merge of tables keyed `ka` and `kb`."""
+    return merge_rows_bound_ms(ka.shape[0] + kb.shape[0],
+                               real_rows(ka) + real_rows(kb))
+
+
+def count_rows_bound_ms(records: int, real: int) -> float:
+    """count_runs' bound from its record counts: every key read (8 B),
+    the edge byte of the `real` records only, every output row written
+    (80 B)."""
+    return bound_ms(8 * records + real + 80 * records)
+
+
+def count_bound_ms(skeys) -> float:
+    """count_rows_bound_ms of the sorted records keyed `skeys`."""
+    return count_rows_bound_ms(skeys.shape[0], real_rows(skeys))
+
+
+def touched_rows(tkeys, qkeys) -> int:
+    """Distinct table rows that the queries find: the rows a probe must
+    read at the least."""
+    row = torch.searchsorted(tkeys, qkeys).clamp_(max=tkeys.shape[0] - 1)
+    found = (tkeys[row] == qkeys) & (qkeys != SENTINEL)
+    return int(torch.unique(row[found]).shape[0])
+
+
+def _distinct(x) -> int:
+    return int(torch.unique(x).shape[0])
+
+
+def _search_sectors(tkeys, index, qkeys):
+    """What the directory searches of `qkeys` read at the least: the
+    distinct 32-byte sectors of each searched query's two directory
+    entries and of the key at the row its search ends on (SENTINEL
+    queries and keys past the directory are not searched).  Returns
+    (sectors, searched mask, found mask over the searched, found rows)."""
+    starts, shift = index
+    b = bucket_of(qkeys, shift)
+    keep = (qkeys != SENTINEL) & (b < starts.shape[0] - 1)
+    q, b = qkeys[keep], b[keep]
+    row = torch.searchsorted(tkeys, q).clamp_(max=max(tkeys.shape[0] - 1,
+                                                      0))
+    found = tkeys[row] == q
+    sectors = _distinct(torch.cat([b, b + 1]) >> 2) + _distinct(row >> 2)
+    return sectors, keep, found, row[found]
+
+
+def sector_floor_ms(tkeys, index, qkeys, qctx, streamed: int) -> float:
+    """A validate probe's floor under random access: the 32-byte sectors
+    of each array that the queries touch at the least, each counted
+    once (the search's, then a found row's cov and the fw or bw row of
+    each selected counter, 32 B a row), plus the `streamed` bytes of
+    queries and outputs, at the H100's 3.35 TB/s."""
+    sectors, keep, found, frow = _search_sectors(tkeys, index, qkeys)
+    fctx = qctx[keep][found].to(torch.int64)
+    # a selector's sector: its row of fw (1-4) or of bw (5-8)
+    counters = [2 * frow[sel != 0] + (sel[sel != 0] > 4)
+                for sel in (fctx & 15, fctx >> 4)]
+    return bound_ms(32 * (sectors + _distinct(frow >> 2)
+                          + _distinct(torch.cat(counters))) + streamed)
+
+
+def rows_floor_ms(tkeys, index, qkeys, streamed: int) -> float:
+    """The generic probe's floor, as sector_floor_ms with each found row
+    read whole: its cov sector, its fw row and its bw row (32 B, one
+    sector each)."""
+    sectors, _keep, _found, frow = _search_sectors(tkeys, index, qkeys)
+    return bound_ms(32 * (sectors + _distinct(frow >> 2)
+                          + 2 * _distinct(frow)) + streamed)

@@ -12,8 +12,9 @@ the subgraph searches' neighbour scan (plain torch ops) on the card
 against the CPU; B4 and B5 on the uploaded windows of a
 host-resident table, each with its own directory; the sharded path's
 owners and routing on the card against the CPU, a 1-rank NCCL
-build against the plain build, and the flagship step
-(entry.entry) on the card against its run on the CPU.  Needs a
+build against the plain build, the flagship step
+(entry.entry) on the card against its run on the CPU, and the bench's
+four stages (kreeq_tpu_torch/bench.py) at bench.py's shapes.  Needs a
 CUDA device (the `gpu` marker); run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m gpu
@@ -827,3 +828,27 @@ def test_entry_step_cuda_equals_cpu(cuda, monkeypatch):
     assert kernels.LAUNCHES["probe_select"] == 1
     assert got == [int(x) for x in fn(*(a.cpu() for a in args))]
     assert got[0] > 0 and got[1] == args[1].shape[0] - 21 + 1
+
+
+def test_bench_stages_exact_at_bench_shapes(cuda):
+    """The bench's four stages at bench.py's shapes (an 8M-base chunk,
+    k = 31, its 4M-base prefix as the window, the counted table's two
+    halves): each stage holds its kernel exactly against the plain
+    version (it raises otherwise), the window's #missing is 0, and B1-B4
+    each launched."""
+    from kreeq_tpu_torch import bench
+    from kreeq_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    b = bench.Bench(cuda, 0, reps=2)
+    for stage in (b.count, b.qv, b.track, b.merge):
+        stage()
+    stages = b.extra["stages"]
+    assert all(stages[s]["exact"] for s in ("count", "probe_qv",
+                                            "probe_track", "merge"))
+    assert stages["count"]["records"] == bench.CHUNK - bench.K + 1
+    assert stages["probe_qv"]["queries"] == bench.PCHUNK - bench.K + 1
+    assert stages["probe_qv"]["missing"] == 0
+    assert stages["index"]["bits"] == 22
+    for key in ("count", "merge", "probe_qv", "probe_select"):
+        assert kernels.LAUNCHES[key] > 0
