@@ -128,11 +128,21 @@ non-zero and never prints the final line):
      complete (no "incomplete"), with a value above 0, every stage exact
      against its plain version, the QV window's #missing 0, and B1-B4
      launched.
-The seventh-to-last line is the bench's last line (phase 14), the
+ 15. the path benches (kreeq_tpu_torch/bench_variants.py,
+     bench_subgraph.py): each as a fresh process at its script's size
+     (n = 1,000,000, k = 21), one after the other: it must exit 0 with
+     the script's lines, the batched variants equal to the per-position
+     loop, the batched traversal equal to the scalar loop (insertion
+     order and fields), the prefiltered best-first equal to the
+     exhaustive one in key order, and B5 launched and exact against its
+     plain version at the scan window, the largest traversal round and
+     the extraction, each timed beside its bound and sector floor.
+The eighth-to-last line is a JSON object of phase 15's records, the
+seventh-to-last the bench's last line (phase 14), the
 sixth-to-last a JSON object of phase 13's records, the fifth-to-last
 one of phase 12's, the fourth-to-last one of phase 10's, the
 third-to-last one of phase 11's; the second-to-last one with each
-kernel's launches (and its launches in phases 10, 11, 12, 13 and 14),
+kernel's launches (and its launches in phases 10-15),
 error, times, bound and shape; the last is {"ok": true, "device":
 {...}}.  Needs a CUDA device; imports no JAX.
 """
@@ -158,6 +168,7 @@ import numpy as np
 
 from kreeq_tpu_torch.ops.bounds import (bound_ms, compare, count_bound_ms,
                                         cuda_ms, merge_bound_ms,
+                                        probe_sorted_bound_ms,
                                         rows_floor_ms, sector_floor_ms,
                                         touched_rows)
 
@@ -731,11 +742,9 @@ def phase_kernels(fq: str, fa: str, device):
     vkeys, _visfw, _vvalid = _extract_sentinel(vbuf, K)
     vargs = (*tab, vkeys)
     vq = vkeys.shape[0]
-    # queries; every found row whole; found and a whole row out
     res["probe_sorted"] = dict(
         shape=f"q={vq} t={len(table)} bits={bits}",
-        bound_ms=bound_ms(8 * vq + 80 * touched_rows(table.keys, vkeys)
-                          + 73 * vq),
+        bound_ms=probe_sorted_bound_ms(table.keys, vkeys),
         sector_ms=rows_floor_ms(table.keys, index, vkeys, 81 * vq),
         max_abs_err=compare("probe_sorted",
                             kernels.probe_sorted_cuda(*vargs, index),
@@ -2354,6 +2363,37 @@ def phase_entry(tmp, device):
     return total_launches, rec
 
 
+def run_module(module: str, timeout: float, **switches):
+    """`python -m module` as a fresh process on the card (no
+    KREEQ_TPU_PLATFORM; `switches` added to the environment), from the
+    repository root; (stdout, stderr, wall s).  Raises unless it exits 0
+    with some output; on a failure or past `timeout` it and every
+    process it started are killed."""
+    import torch
+
+    torch.cuda.empty_cache()  # the process needs the card too
+    environ = {**os.environ, **switches}
+    environ.pop("KREEQ_TPU_PLATFORM", None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", module],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=environ,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        for pid in _descendants(proc.pid) + [proc.pid]:
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
+        proc.wait()
+    if proc.returncode != 0 or not out.strip():
+        raise AssertionError(f"{module} exited {proc.returncode}:\n"
+                             + "\n".join((out + err).splitlines()[-30:]))
+    return out, err, time.perf_counter() - t0
+
+
 BENCH_DEADLINE_S = 300  # phase 14's deadline for the bench's watchdog
 BENCH_STAGES = ("count", "probe_qv", "probe_track", "merge")
 
@@ -2365,32 +2405,10 @@ def phase_bench():
     QV window's #missing 0 and B1-B4 launched.  On a failure or past the
     deadline it and every process it started are killed.  Returns (the
     bench's launches, its last line)."""
-    import torch
-
-    torch.cuda.empty_cache()  # the bench's process needs the card too
-    here = os.path.dirname(os.path.abspath(__file__))
-    environ = {**os.environ,
-               "KREEQ_TPU_BENCH_DEADLINE": str(BENCH_DEADLINE_S)}
-    environ.pop("KREEQ_TPU_PLATFORM", None)
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "kreeq_tpu_torch.bench"], cwd=here,
-        env=environ, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
-    try:
-        out, err = proc.communicate(timeout=BENCH_DEADLINE_S + 60)
-    finally:
-        for pid in _descendants(proc.pid) + [proc.pid]:
-            try:
-                os.kill(pid, 9)
-            except OSError:
-                pass
-        proc.wait()
-    wall = time.perf_counter() - t0
+    out, err, wall = run_module(
+        "kreeq_tpu_torch.bench", BENCH_DEADLINE_S + 60,
+        KREEQ_TPU_BENCH_DEADLINE=str(BENCH_DEADLINE_S))
     lines = out.splitlines()
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"the bench exited {proc.returncode}:\n"
-                             + "\n".join((out + err).splitlines()[-30:]))
     for line in err.splitlines():
         log(f"    | {line}")
     last = json.loads(lines[-1])
@@ -2418,6 +2436,63 @@ def phase_bench():
         + f"; exact; launches {launches}; {len(lines)} lines in "
         f"{wall:.1f} s")
     return launches, last
+
+
+# phase 15: the path benches, as the scripts they port name their lines
+PATH_BENCHES = {
+    "variants": ("DB build:", "batched:", "per-position:", "speedup:",
+                 "outputs identical"),
+    "subgraph": ("DB build:", "seed subgraph:", "batched traversal (cold):",
+                 "batched traversal (warm):", "scalar traversal:",
+                 "speedup:", "prefiltered best-first:",
+                 "exhaustive best-first:", "best-first speedup:"),
+}
+PATH_BENCH_TIMEOUT_S = 400
+
+
+def phase_paths():
+    """Phase 15: `python -m kreeq_tpu_torch.bench_variants` and
+    `bench_subgraph` as fresh processes at the scripts' sizes (n =
+    1,000,000, k = 21), one after the other, each under
+    PATH_BENCH_TIMEOUT_S: each must exit 0 with the script's lines and
+    a JSON last line from the card, every batched path equal to its
+    scalar loop, and B5 launched on the path and exact against its plain
+    version at the path's shapes.  On a failure or past the timeout a
+    bench and every process it started are killed.  Returns (the
+    launches of both, summed; {name: its record})."""
+    launches, records = {}, {}
+    for name, heads in PATH_BENCHES.items():
+        out, _err, wall = run_module(f"kreeq_tpu_torch.bench_{name}",
+                                     PATH_BENCH_TIMEOUT_S)
+        lines = out.splitlines()
+        rec = json.loads(lines[-1])
+        if [h for h in heads if not any(line.startswith(h)
+                                         for line in lines)]:
+            raise AssertionError(f"bench_{name}: the script's lines are "
+                                 f"missing:\n{out}")
+        if not all(v is True for v in rec["identical"].values()):
+            raise AssertionError(f"bench_{name}: {rec['identical']}")
+        if rec["device"]["type"] != "cuda":
+            raise AssertionError(f"bench_{name} ran on {rec['device']}")
+        for what, b5 in rec["b5"].items():
+            if b5["max_abs_err"] != 0.0 or not b5["ms"] > 0:
+                raise AssertionError(f"bench_{name}: B5 {what} {b5}")
+        check_launches(rec["launches"], ("count", "probe_sorted"),
+                       f"bench_{name}")
+        for key, n in rec["launches"].items():
+            launches[key] = launches.get(key, 0) + n
+        rec["wall_s"] = wall
+        records[name] = rec
+        for line in lines[:-1]:
+            log(f"    | {line}")
+        log(f"[15 {name}] exit 0 in {wall:.1f} s; steps (s) "
+            + ", ".join(f"{k} {v:.3f}" for k, v in rec["steps_s"].items())
+            + "; B5 " + ", ".join(
+                f"{w} q={b['q']} {b['ms']:.4f} ms (bound {b['bound_ms']:.4f}"
+                f" ms, sector floor {b['sector_floor_ms']:.4f} ms)"
+                for w, b in rec["b5"].items())
+            + f"; launches {rec['launches']}")
+    return launches, records
 
 
 def _busy_s(events) -> float:
@@ -2558,7 +2633,9 @@ def main() -> int:
                                                wall4, args.seed, device)
         entry_launches, entry = phase_entry(tmp, device)
     bench_launches, bench = phase_bench()
+    path_launches, paths = phase_paths()
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")
+    print(json.dumps({"paths": paths}))
     print(json.dumps(bench))
     print(json.dumps(entry))
     print(json.dumps({"runner": runner}))
@@ -2577,7 +2654,8 @@ def main() -> int:
          "sharded_launches": shard_launches[key],
          "runner_launches": runner_launches[key],
          "entry_launches": entry_launches[key],
-         "bench_launches": bench_launches[key]}
+         "bench_launches": bench_launches[key],
+         "paths_launches": path_launches[key]}
         for name, key, src, tpu, path in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

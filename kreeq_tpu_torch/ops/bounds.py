@@ -102,6 +102,14 @@ def count_bound_ms(skeys) -> float:
     return count_rows_bound_ms(skeys.shape[0], real_rows(skeys))
 
 
+def probe_sorted_bound_ms(tkeys, qkeys) -> float:
+    """The generic probe's bound: every query read (8 B), every row it
+    finds read whole once (80 B), found and a whole row written per
+    query (73 B)."""
+    q = qkeys.shape[0]
+    return bound_ms(8 * q + 80 * touched_rows(tkeys, qkeys) + 73 * q)
+
+
 def touched_rows(tkeys, qkeys) -> int:
     """Distinct table rows that the queries find: the rows a probe must
     read at the least."""

@@ -100,6 +100,11 @@ def phase(name: str):
         verbose(f"{name} done in {dt:.3f}s")
 
 
+def phase_times(name: str) -> list:
+    """Seconds of each finished phase called `name`, in order."""
+    return [dt for n, dt in _phases if n == name]
+
+
 def print_profile() -> None:
     if profile_flag and _phases:
         sys.stderr.write("=== phase profile ===\n")
