@@ -8,7 +8,8 @@ non-zero and never prints the final line):
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: compile the CUDA kernels from ops/csrc/ with nvcc;
   3. kernels against their plain PyTorch versions on the card, at the
-     main path's shapes: the build's count + merge on the card, timed;
+     main path's shapes: the build's extraction + count + merge on the
+     card, timed;
      the same build again with every merge exact against the plain
      version and timed with CUDA events (the sum of the kernel's times
      and of its bound); one 8M-base read chunk, as it is, with a
@@ -18,7 +19,9 @@ non-zero and never prints the final line):
      4,194,304-position validate window for each validate probe and
      one full variants window of per-position sentinel keys for the
      generic probe, all three through the directory, also at 20, 21 and
-     22 bits, and B3 and B5 on a table with a 10^6-row poly-A pile;
+     22 bits, and B3 and B5 on a table with a 10^6-row poly-A pile; the
+     extraction (kmer_extract) on the first read chunk (records form)
+     and on the validate window (qv and track forms);
      exact equality, median times with CUDA events, each beside its
      bound (the bytes these inputs need at 3.35 TB/s: a SENTINEL row's
      key only) and, for the probes, the sector floor (the sectors their
@@ -27,8 +30,9 @@ non-zero and never prints the final line):
      the port's CLI on the card, on a generated yeast-scale assembly
      (planted SNV/INS/DEL, an N run, IUPAC bases, short contigs) and
      30x of 150-bp reads at 0.2% substitutions; every kernel of the path
-     must have launched, and Total must equal the assembly's k-mer
-     count;
+     must have launched, the extraction once a read chunk and once a
+     QV window (B1's launches plus B3's), and Total must equal the
+     assembly's k-mer count;
   5. the whole slice at 0.5 Mbp on the card and on the CPU (plain
      versions), with 4,096-position variants windows: stdout and every
      output file (-o x.kreeq, x.bed, x.kwig, x.bkwig, x.hist, `union`,
@@ -167,7 +171,8 @@ import time
 import numpy as np
 
 from kreeq_tpu_torch.ops.bounds import (bound_ms, compare, count_bound_ms,
-                                        cuda_ms, merge_bound_ms,
+                                        cuda_ms, extract_bound_ms,
+                                        merge_bound_ms,
                                         probe_sorted_bound_ms,
                                         rows_floor_ms, sector_floor_ms,
                                         touched_rows)
@@ -203,6 +208,10 @@ KERNELS = (
     ("probe_sorted", "probe_sorted",
      "kreeq_tpu_torch/ops/csrc/probe_sorted.cu",
      "kreeq_tpu/ops/pallas_kernels.py:342", "variants"),
+    # the jitted extraction (XLA, not a pl.pallas_call); also
+    # kreeq_tpu/ops/validate.py:131 and :214
+    ("kmer_extract", "extract", "kreeq_tpu_torch/ops/csrc/kmer_extract.cu",
+     "kreeq_tpu/ops/kmers.py:40", "validate"),
 )
 
 
@@ -611,7 +620,7 @@ def phase_kernels(fq: str, fa: str, device):
         first = None
         for buf in bufs:
             codes = torch.from_numpy(buf).to(device)
-            keys, _isfw, edges, valid = Km.kmer_positions(codes, K)
+            keys, _isfw, edges, valid = kernels.extract_cuda(codes, K)
             if first is None:
                 first = (keys, edges, valid)
             tm.push(kernels.count_sorted_cuda(keys, edges, valid))
@@ -693,8 +702,30 @@ def phase_kernels(fq: str, fa: str, device):
     dbg = DBG(UserInput(kmer_len=K), table)
     wbuf = torch.from_numpy(dbg._window_buf(seg.codes, 0, WINDOW,
                                             kcount)).to(device)
-    qkeys, qctx = V._extract_ctx_qv(wbuf, K)
+    qkeys, qctx = kernels.extract_cuda(wbuf, K, "qv")
     tab = (table.keys, table.cov, table.fw, table.bw)
+    # the extraction at the main path's shapes: the first 8M-base read
+    # chunk's records, one validate window's qv and track forms
+    ext = {}
+    for form, codes in (("records", torch.from_numpy(bufs[0]).to(device)),
+                        ("qv", wbuf), ("track", wbuf)):
+        plain = kernels.plain_extract(form)
+        ext[form] = dict(
+            shape=f"{form} N={codes.shape[0]} k={K}",
+            bound_ms=extract_bound_ms(codes.shape[0], K, form),
+            max_abs_err=compare(f"kmer_extract ({form})",
+                                kernels.extract_cuda(codes, K, form),
+                                plain(codes, K)),
+            ms=cuda_ms(lambda: kernels.extract_cuda(codes, K, form)),
+            plain_ms=cuda_ms(lambda: plain(codes, K)))
+    del codes
+    res["kmer_extract"] = dict(ext["records"], forms={
+        form: ext[form] for form in ("qv", "track")})
+    for form in ("qv", "track"):
+        r = ext[form]
+        log(f"    kmer_extract {r['shape']}: kernel {r['ms']:.3f} ms  plain "
+            f"{r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_ms'] / r['ms']:.1%} of the kernel's time)  exact")
     # the validate probes' bucket directory, as the CLI builds it: once
     # per table, on the table (KmerTable.bucket_index)
     index = table.bucket_index()
@@ -721,7 +752,7 @@ def phase_kernels(fq: str, fa: str, device):
         plain_ms=cuda_ms(lambda: V.qv_sums(*args)))
     # the track path probes every position of the window buffer: the
     # window plus one position of context on each side
-    skeys, _isfw, _valid, sctx = V._extract_ctx(wbuf, K)
+    skeys, _isfw, _valid, sctx = kernels.extract_cuda(wbuf, K, "track")
     sargs = (*tab, skeys, sctx)
     q = skeys.shape[0]
     # queries; per found row key, cov and two counters; found, cov,
@@ -821,9 +852,14 @@ def phase_end_to_end(fq, fa, read_bases, kcount, ingest_s, device):
     os.environ.pop("KREEQ_TPU_PLATFORM", None)
     out, launches, phases, wall, peak = drive(
         ["kreeq", "validate", "-r", fq, "-f", fa, "-k", str(K)],
-        ("count", "merge", "probe_qv"), "validate", device)
+        ("extract", "count", "merge", "probe_qv"), "validate", device)
     for line in out.splitlines():
         log("    | " + line)
+    # one extraction a read chunk (before its B1) and one a QV window
+    # (before its B3: every window holds a position, so B3 launches)
+    if launches["extract"] != launches["count"] + launches["probe_qv"]:
+        raise AssertionError(f"{launches['extract']} extractions, not one "
+                             f"a chunk and one a window: {launches}")
     build_s = phases["build k-mer DB"]
     log(f"[4 end to end] wall {wall:.2f} s: build (ingest + count + "
         f"merge) {build_s:.2f} s = {read_bases / build_s / 1e6:.2f} M "
@@ -950,12 +986,12 @@ def phase_db_tracks(fq, fa, tmp, qv_rows, device):
 
     _out, l_db, ph_db, wall_db, peak_db = drive(
         ["kreeq", "validate", "-r", fq, "-k", str(K), "-o", db],
-        ("count", "merge"), "DB build", device)
+        ("extract", "count", "merge"), "DB build", device)
     db_mib = sum(os.path.getsize(os.path.join(db, f))
                  for f in os.listdir(db)) / 2**20
     out, l_tr, ph_tr, wall_tr, peak_tr = drive(
         ["kreeq", "validate", "-d", db, "-f", fa, "-o", bkwig],
-        ("probe_select",), "tracks", device)
+        ("extract", "probe_select"), "tracks", device)
     rows = out.splitlines()[-2:]
     if rows != qv_rows:
         raise AssertionError(f"QV rows of the DB-reuse track run {rows} "
@@ -1045,7 +1081,8 @@ def phase_variants(fa, tmp, qv_rows, device):
                      lambda args, _got: args[4].shape[0]) as calls:
         out, l_anom = path(["kreeq", "validate", "-d", db, "-f", fa,
                             "--detect-anomalies", anom],
-                           ("probe_qv", "probe_sorted"), "anomalies")
+                           ("extract", "probe_qv", "probe_sorted"),
+                           "anomalies")
     torch.cuda.synchronize()
     b5 = [(q, s.elapsed_time(e)) for q, s, e in calls]
     if len(b5) != l_anom["probe_sorted"]:
@@ -1070,7 +1107,7 @@ def phase_variants(fa, tmp, qv_rows, device):
     seq = head_fasta(fa, cut, "chr2", CUT_VCF)
     vcf = os.path.join(tmp, "asm.vcf")
     _out, l_vcf = path(["kreeq", "validate", "-d", db, "-f", cut, "-o",
-                        vcf], ("probe_sorted",), "variants")
+                        vcf], ("extract", "probe_sorted"), "variants")
     stats = dict(variants.SEARCH_STATS)
     with open(vcf) as fh:
         recs = [line.rstrip("\n").split("\t") for line in fh
@@ -1158,7 +1195,8 @@ def _subgraph_probes(db, cut, device):
         f"pure-Python nodes, the same dict")
 
     seg = max(genome.segments, key=len)
-    qkeys = Km.kmer_positions(torch.from_numpy(seg.codes).to(device), K)[0]
+    qkeys = kernels.extract_cuda(torch.from_numpy(seg.codes).to(device),
+                                 K)[0]
     fkeys, ffw, fbw = subgraph._node_arrays(sub, device)
     members = torch.sort(fkeys).values
     rkeys = survivors(fkeys, ffw, fbw, members, K, 0, dedup=True)[0]
@@ -1197,7 +1235,7 @@ def phase_subgraph(tmp, device):
         argv = ["kreeq", "subgraph", "-d", db, "-f", cut,
                 "--traversal-algorithm", alg, "-o", gfa]
         stdout, launches, phases, wall, peak = drive(
-            argv, ("probe_sorted",), f"subgraph {alg}", device)
+            argv, ("extract", "probe_sorted"), f"subgraph {alg}", device)
         st = dict(subgraph.SUBGRAPH_STATS)
         stats = _graph_stats(stdout)
         with open(gfa) as fh:
@@ -1353,8 +1391,8 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
         try:
             out, la, ph, wall, peak = drive(
                 ["kreeq", "validate", "-r", fq, "-f", fa, "-k", str(K)],
-                ("count", "merge", "probe_select"), "out-of-core validate",
-                device)
+                ("extract", "count", "merge", "probe_select"),
+                "out-of-core validate", device)
         finally:
             KmerTable.from_reads = classmethod(plain_from_reads)
         rec = step("a", wall, la, peak, build_s=ph["build k-mer DB"],
@@ -1376,7 +1414,7 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
         bkwig = os.path.join(tmp, "asm.ooc.bkwig")
         _out, lb, ph, wall, peak = drive(
             ["kreeq", "validate", "-d", db, "-f", fa, "-o", bkwig],
-            ("probe_select",), "out-of-core tracks", device)
+            ("extract", "probe_select"), "out-of-core tracks", device)
         rec = step("b", wall, lb, peak, load_s=ph["load k-mer DB"],
                    validate_s=ph["validate"])
         if len(rec["pin"]) != 1 or windows_of(rec) != list(range(nwin)):
@@ -1402,7 +1440,7 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
         _out, ld, ph, wall, peak = drive(
             ["kreeq", "validate", "-d", db, "-f",
              os.path.join(tmp, "chr2_1mbp.fa"), "-o", vcf],
-            ("probe_sorted",), "out-of-core variants", device)
+            ("extract", "probe_sorted"), "out-of-core variants", device)
         step("d", wall, ld, peak, variants_s=ph["variants"])
         if ld["probe_sorted"] != nwin:
             raise AssertionError(f"(d): {ld['probe_sorted']} probe_sorted "
@@ -1419,7 +1457,7 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
             _out, le, ph, wall, peak = drive(
                 ["kreeq", "subgraph", "-d", db, "-f", cut,
                  "--traversal-algorithm", "traversal", "-o", gfa],
-                ("probe_sorted",), "subgraph", device)
+                ("extract", "probe_sorted"), "subgraph", device)
         if windowed:
             step("e", wall, le, peak, search_s=ph["search"])
         else:
@@ -1732,7 +1770,7 @@ def rank_checks(spec: dict) -> dict:
                 "probe_sorted": _checked(
                     "probe_sorted", lambda *a: KM.probe_sorted(*a[:5]),
                     probes)}
-    check_launches(res["c"]["launches"], ("count", "probe_sorted"),
+    check_launches(res["c"]["launches"], ("extract", "count", "probe_sorted"),
                    f"rank {rank}'s full_pipeline")
     del counts, probes, reads, asm
 
@@ -1847,7 +1885,7 @@ def phase_sharded(fq, fa, tmp, validate_out, ooc, card, device):
         return recs
 
     # (a)
-    report["a"] = cli_ranks("a", ("count", "merge", "probe_qv"))
+    report["a"] = cli_ranks("a", ("extract", "count", "merge", "probe_qv"))
 
     # (b) a 1-rank NCCL group in this process: in core, then with phase
     # 10's caps, so the table is gathered into host memory through card
@@ -1876,7 +1914,8 @@ def phase_sharded(fq, fa, tmp, validate_out, ooc, card, device):
                    "on_host": built.on_host, "peak_gib":
                    torch.cuda.max_memory_allocated(device) / 2**30,
                    **sharded.stats_report(device)}
-            check_launches(lb, ("count", "merge"), f"({name}) NCCL build")
+            check_launches(lb, ("extract", "count", "merge"),
+                           f"({name}) NCCL build")
             add(lb)
             if (rec["gather"]["host_calls"], built.on_host) != (
                     (1, True) if caps else (0, False)):
@@ -1908,14 +1947,14 @@ def phase_sharded(fq, fa, tmp, validate_out, ooc, card, device):
     tm = TreeMerger(device)
     for _ in range(RANKS):
         codes = torch.from_numpy(next(chunks)).to(device)
-        keys, _isfw, edges, valid = KM.kmer_positions(codes, K)
+        keys, _isfw, edges, valid = kernels.extract_cuda(codes, K)
         tm.push(kernels.count_sorted_cuda(keys, edges, valid))
     tab = tm.finalize()
     codes = torch.from_numpy(seq_to_codes(seq)).to(device)
     p = codes.shape[0] - K + 1
     b3 = validate_qv_sums(*tab, codes, K, 0, 0, p,
                           bucket_index(tab[0], K)).tolist()
-    valid = int(KM.kmer_positions(codes, K)[3].sum())
+    valid = int(kernels.extract_cuda(codes, K)[3].sum())
     want = [valid, b3[0] - (p - valid), b3[1]]
     del tm, tab, codes
     torch.cuda.empty_cache()
@@ -1952,7 +1991,7 @@ def phase_sharded(fq, fa, tmp, validate_out, ooc, card, device):
             f"{res['peak_gib']:.2f} GiB")
 
     # (e) sharded and windowed
-    report["e"] = cli_ranks("e", ("count", "merge", "probe_select"),
+    report["e"] = cli_ranks("e", ("extract", "count", "merge", "probe_select"),
                             MAX_TABLE_ROWS=OOC_ROWS,
                             HOST_MERGE_ROWS=OOC_MERGE_ROWS)
     want_b4 = ooc["steps"]["a"]["launches"]["probe_select"]
@@ -2058,7 +2097,7 @@ def phase_runner(fq, fa, tmp, validate_out, wall4, seed, device):
     n_tst = len(os.listdir(vf))
     with env(PLATFORM=None, CHUNK=RUNNER_CHUNK):
         out, rc, wall, launches = run_runner(
-            [vf], ("count", "merge", "probe_qv", "probe_sorted"))
+            [vf], ("extract", "count", "merge", "probe_qv", "probe_sorted"))
     _passed(out, n_tst, "(a) the corpus on the card")
     if rc != 0:
         raise AssertionError(f"(a) runner exit code {rc}")
@@ -2097,7 +2136,7 @@ def phase_runner(fq, fa, tmp, validate_out, wall4, seed, device):
     rec["full"] = []
     for name, cmd, keys in (
             ("validate_r", f"kreeq validate -r {fq} -f {fa} -k {K}",
-             ("count", "merge", "probe_qv")),
+             ("extract", "count", "merge", "probe_qv")),
             ("validate_d", f"kreeq validate -d {db} -f {fa}",
              ("probe_qv",))):
         tst = os.path.join(full, name + ".tst")
@@ -2259,7 +2298,7 @@ def phase_entry(tmp, device):
     got = [int(x) for x in fn(*args)]
     wall = time.perf_counter() - t0
     la = dict(kernels.LAUNCHES)
-    check_launches(la, ("count", "probe_select"), "entry()")
+    check_launches(la, ("extract", "count", "probe_select"), "entry()")
     want = [int(x) for x in fn(*(a.cpu() for a in args))]
     if got != want:
         raise AssertionError(f"(a) entry() on the card {got}, on the CPU "
@@ -2275,7 +2314,8 @@ def phase_entry(tmp, device):
     # (b)
     res = entry.dryrun_multichip(ENTRY_RANKS)
     lb = res["launches"]
-    check_launches(lb, ("count", "probe_sorted"), "dryrun_multichip")
+    check_launches(lb, ("extract", "count", "probe_sorted"),
+                   "dryrun_multichip")
     if any(r["device"] == "cpu" for r in res["per_rank"]):
         raise AssertionError(f"(b) a rank ran on the CPU: {res}")
     rec["dryrun"] = {k: res[k] for k in ("ranks", "sums", "launches",
@@ -2323,14 +2363,14 @@ def phase_entry(tmp, device):
         db = os.path.join(wd, "incore.kreeq")
         for name, argv, keys in (
                 ("build", ["-r", os.path.join(wd, "reads.fastq"), "-k", "31",
-                           "-o", db], ("count", "merge")),
+                           "-o", db], ("extract", "count", "merge")),
                 ("qv", ["-d", db, "-f", os.path.join(wd, "asm.fasta"), "-o",
                         os.path.join(wd, "incore.bkwig")],
-                 ("probe_select",)),
+                 ("extract", "probe_select")),
                 ("vcf", ["-d", db, "-f", os.path.join(wd, "asm10.fasta"),
                          "-o", os.path.join(wd, "incore.vcf"),
                          "--search-depth", "50", "--max-span", "32"],
-                 ("probe_sorted",))):
+                 ("extract", "probe_sorted"))):
             out, launches, _ph, wall, _peak = drive(
                 ["kreeq", "validate", *argv], keys, f"(d) in core {name}",
                 device)
@@ -2420,8 +2460,8 @@ def phase_bench():
             or stages["probe_qv"]["missing"] != 0:
         raise AssertionError(f"the bench's stages: {stages}")
     launches = extra["launches"]
-    check_launches(launches, ("count", "merge", "probe_qv", "probe_select"),
-                   "bench")
+    check_launches(launches, ("extract", "count", "merge", "probe_qv",
+                              "probe_select"), "bench")
     log(f"[14 bench] {last['value']:.0f} {last['unit']} "
         f"({last['vs_baseline']:.3f}x the CPU oracle on "
         f"{extra['host_cores']} cores); steps (median ms): count "
@@ -2477,7 +2517,7 @@ def phase_paths():
         for what, b5 in rec["b5"].items():
             if b5["max_abs_err"] != 0.0 or not b5["ms"] > 0:
                 raise AssertionError(f"bench_{name}: B5 {what} {b5}")
-        check_launches(rec["launches"], ("count", "probe_sorted"),
+        check_launches(rec["launches"], ("extract", "count", "probe_sorted"),
                        f"bench_{name}")
         for key, n in rec["launches"].items():
             launches[key] = launches.get(key, 0) + n
@@ -2648,8 +2688,9 @@ def main() -> int:
          "max_abs_err": res[name]["max_abs_err"], "ms": res[name]["ms"],
          "plain_ms": res[name]["plain_ms"],
          "bound_ms": res[name]["bound_ms"], "bound_by": "bytes",
-         # no one PyTorch call computes any of the five (PERF.md)
+         # no one PyTorch call computes any of the six (PERF.md)
          "library_ms": None, "shape": res[name]["shape"],
+         **({"forms": res[name]["forms"]} if "forms" in res[name] else {}),
          "ooc_launches": ooc_launches[key],
          "sharded_launches": shard_launches[key],
          "runner_launches": runner_launches[key],

@@ -6,7 +6,7 @@ throughput on one CUDA card (counterpart of bench.py).
 bench.py's stages at bench.py's shapes, each through the functions the
 production path calls:
   count  - one 8M-base random chunk (2^23 codes from default_rng(seed)),
-           k = 31: ops/kmers.kmer_positions, then
+           k = 31: ops/kernels.extract_cuda (kmer_extract), then
            ops/kernels.count_sorted_cuda (torch.sort, then count_runs,
            B1), as core/table.from_reads counts each chunk;
   QV     - the chunk's 4M-base prefix (a window drawn from the reads, so
@@ -22,8 +22,9 @@ production path calls:
            the first lies below every key of the second: the merge does
            not interleave.
 Before any timing, each kernel's output must equal its plain version's
-on the card (ops/kmers.count_runs, merge_sorted, ops/validate.qv_sums,
-probe_select), and the window's #missing must be 0.  Each step, each
+on the card (ops/kmers.kmer_positions, count_runs, merge_sorted,
+ops/validate._extract_ctx_qv, _extract_ctx, qv_sums, probe_select),
+and the window's #missing must be 0.  Each step, each
 kernel and each plain version is timed with CUDA events: a warm-up, then
 REPS calls; a stage reports the median and the quartiles.  Beside each
 kernel's time stand its bound (ops/bounds.py: the bytes its inputs need
@@ -94,12 +95,12 @@ def genome(seed: int, bases: int) -> np.ndarray:
 
 def count_step(codes, k: int):
     """One chunk counted as core/table.from_reads counts it: canonical
-    extraction, then the sort and B1 (ops/kernels.count_sorted_cuda).
-    Returns (keys, cov, fw, bw, n) of P rows, a SENTINEL tail after n."""
-    from .ops.kernels import count_sorted_cuda
-    from .ops.kmers import kmer_positions
+    extraction (ops/kernels.extract_cuda), then the sort and B1
+    (ops/kernels.count_sorted_cuda).  Returns (keys, cov, fw, bw, n) of
+    P rows, a SENTINEL tail after n."""
+    from .ops.kernels import count_sorted_cuda, extract_cuda
 
-    keys, _isfw, edges, valid = kmer_positions(codes, k)
+    keys, _isfw, edges, valid = extract_cuda(codes, k)
     return count_sorted_cuda(keys, edges, valid)
 
 
@@ -184,22 +185,41 @@ class Bench:
                 "bound_ms": bound, "share_of_bound": bound / ms, **more,
                 "exact": True}
 
+    def _extract_parts(self, form: str) -> dict:
+        """A probe step's part: the window's extraction in `form`, the
+        kernel and the plain version timed, with the kernel's bound."""
+        from .ops.bounds import extract_bound_ms
+        from .ops.kernels import extract_cuda, plain_extract
+
+        k, asm = self.k, self.asm
+        return {"parts": {
+                    "extract": self.times(lambda: extract_cuda(asm, k, form)),
+                    "extract_plain": self.times(
+                        lambda: plain_extract(form)(asm, k))},
+                "extract_bound_ms": extract_bound_ms(asm.shape[0], k, form)}
+
     def count(self) -> None:
-        """The count step, its parts (kmer_positions, the sort, B1) and
-        B1 against count_runs."""
-        from .ops.bounds import compare, count_bound_ms
-        from .ops.kernels import count_runs_cuda
+        """The count step, its parts (the extraction, the sort, B1), the
+        extraction against kmer_positions and B1 against count_runs."""
+        from .ops.bounds import compare, count_bound_ms, extract_bound_ms
+        from .ops.kernels import count_runs_cuda, extract_cuda
         from .ops.kmers import count_runs, kmer_positions, sort_records
 
         codes, k = self.codes, self.k
-        keys, _isfw, edges, valid = kmer_positions(codes, k)
+        recs = extract_cuda(codes, k)
+        compare("kmer_extract (records)", recs, kmer_positions(codes, k))
+        keys, _isfw, edges, valid = recs
         skeys, sedges = sort_records(keys, edges, valid)
         got = count_runs_cuda(skeys, sedges)
         compare("count_runs", got, count_runs(skeys, sedges))
         self.table = count_step(codes, k)
         compare("the count step", self.table, got)
         step = self.times(lambda: count_step(codes, k))
+        # the part keeps the name earlier lines gave it; it times the
+        # kernel now, and the plain version under a name of its own
         parts = {"kmer_positions": self.times(
+                     lambda: extract_cuda(codes, k)),
+                 "kmer_positions_plain": self.times(
                      lambda: kmer_positions(codes, k)),
                  "sort": self.times(
                      lambda: sort_records(keys, edges, valid))}
@@ -209,7 +229,10 @@ class Bench:
             self.times(lambda: count_runs(skeys, sedges)),
             count_bound_ms(skeys), records=int(skeys.shape[0]),
             n=int(self.table[4]))
-        self.extra["stages"]["count"] = {"step": step, "parts": parts, **rec}
+        self.extra["stages"]["count"] = {
+            "step": step, "parts": parts,
+            "extract_bound_ms": extract_bound_ms(codes.shape[0], k,
+                                                 "records"), **rec}
         self.rate = (self.chunk - k + 1) / (step["median_ms"] / 1e3)
         self.extra["count_step_ms"] = step["median_ms"]
 
@@ -219,7 +242,7 @@ class Bench:
         from .ops.bounds import (bound_ms, compare, sector_floor_ms,
                                  touched_rows)
         from .ops.index import bucket_index
-        from .ops.kernels import probe_qv_cuda
+        from .ops.kernels import extract_cuda, probe_qv_cuda
         from .ops.validate import _extract_ctx_qv, qv_sums
 
         k, asm, tab = self.k, self.asm, self.table[:4]
@@ -231,7 +254,8 @@ class Bench:
         self.extra["index_ms"] = index_t["median_ms"]
 
         p = asm.shape[0] - k + 1
-        qkeys, qctx = _extract_ctx_qv(asm, k)
+        qkeys, qctx = extract_cuda(asm, k, "qv")
+        compare("kmer_extract (qv)", (qkeys, qctx), _extract_ctx_qv(asm, k))
         args = (*tab, qkeys, qctx, 0, p, 0)
         got = probe_qv_cuda(*args, index)
         compare("probe_qv", (got,), (qv_sums(*args),))
@@ -252,7 +276,8 @@ class Bench:
             sector_floor_ms=sector_floor_ms(tkeys, index, qkeys, qctx,
                                             9 * p + 16),
             queries=p, missing=missing, edge_missing=edge)
-        self.extra["stages"]["probe_qv"] = {"step": step, **rec}
+        self.extra["stages"]["probe_qv"] = {
+            "step": step, **self._extract_parts("qv"), **rec}
         self.extra["probe_qv_step_ms"] = step["median_ms"]
         self.extra["probe_kmers_per_s"] = p / (step["median_ms"] / 1e3)
 
@@ -261,12 +286,14 @@ class Bench:
         #edge-missing must be the QV step's."""
         from .ops.bounds import (bound_ms, compare, sector_floor_ms,
                                  touched_rows)
-        from .ops.kernels import probe_select_cuda
+        from .ops.kernels import extract_cuda, probe_select_cuda
         from .ops.validate import _extract_ctx, probe_select
 
         k, asm, tab, index = self.k, self.asm, self.table[:4], self.index
         tkeys = tab[0]
-        skeys, _isfw, _valid, sctx = _extract_ctx(asm, k)
+        ext = extract_cuda(asm, k, "track")
+        compare("kmer_extract (track)", ext, _extract_ctx(asm, k))
+        skeys, _isfw, _valid, sctx = ext
         sargs = (*tab, skeys, sctx)
         compare("probe_select", probe_select_cuda(*sargs, index),
                 probe_select(*sargs))
@@ -289,7 +316,8 @@ class Bench:
             sector_floor_ms=sector_floor_ms(tkeys, index, skeys, sctx,
                                             34 * q),
             queries=q)
-        self.extra["stages"]["probe_track"] = {"step": step, **rec}
+        self.extra["stages"]["probe_track"] = {
+            "step": step, **self._extract_parts("track"), **rec}
         self.extra["probe_track_step_ms"] = step["median_ms"]
 
     def merge(self) -> None:

@@ -66,7 +66,7 @@ def old_dbg_to_variants(dbg, seg) -> None:
 
     from .constants import keys_to_u64
     from .core.variants import search_variants
-    from .ops.kmers import kmer_positions
+    from .ops.kernels import extract_cuda
 
     k = dbg.k
     ln = len(seg)
@@ -79,7 +79,7 @@ def old_dbg_to_variants(dbg, seg) -> None:
     visited = [False] * ln
     variants = []
 
-    keys, isfw, _e, valid = kmer_positions(
+    keys, isfw, _e, valid = extract_cuda(
         torch.from_numpy(seg.codes).to(table.device), k)
     all_keys = keys_to_u64(keys.cpu().numpy()).copy()
     all_isfw = isfw.cpu().numpy()

@@ -221,8 +221,7 @@ class DBG:
         cov, right, left u32)} over each segment's k-mer positions.
         probe_qv cannot serve here: a k-mer is missing only once every
         window has missed it."""
-        from ..ops.kernels import probe_select_cuda
-        from ..ops.validate import _extract_ctx
+        from ..ops.kernels import extract_cuda, probe_select_cuda
 
         k = self.k
         table = self.table
@@ -237,8 +236,8 @@ class DBG:
             for si, (af, ac, ar, al) in accs.items():
                 codes = self.genome.segments[si].codes
                 for a, b, lead, buf in self._seq_windows(codes, af.size):
-                    keys, _isfw, _valid, ctx = _extract_ctx(
-                        torch.from_numpy(buf).to(dev), k)
+                    keys, _isfw, _valid, ctx = extract_cuda(
+                        torch.from_numpy(buf).to(dev), k, "track")
                     tab = table.device_arrays(w)
                     index = table.window_index(w)
                     t0 = stamp(dev)
@@ -264,10 +263,11 @@ class DBG:
         (the JAX _classify_acc): the window's positions [a, a + hi -
         lead) of the segment's accumulators go to the device at buffer
         positions [lead, hi), then _classify_sel."""
-        from ..ops.validate import _classify_sel, _extract_ctx
+        from ..ops.kernels import extract_cuda
+        from ..ops.validate import _classify_sel
 
         dev = buf.device
-        _keys, isfw, valid, _ctx = _extract_ctx(buf, self.k)
+        _keys, isfw, valid, _ctx = extract_cuda(buf, self.k, "track")
         b = a + hi - lead
         found = np.zeros(valid.shape[0], bool)
         found[lead:hi] = sel_host[0][a:b]

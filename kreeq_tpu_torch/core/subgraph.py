@@ -33,7 +33,7 @@ from ..device import elapsed_ms, stamp
 from ..io.sequence import Edge, Genome
 from ..native.subnode import get_module
 from ..ops.frontier import survivors
-from ..ops.kmers import kmer_positions
+from ..ops.kernels import extract_cuda
 from ..utils import log
 from .fibheap import FibonacciHeap
 from .gfastats import report_stats_lines
@@ -137,7 +137,7 @@ def extract_subgraph(dbg) -> Dict[int, SubNode]:
         if ln < k:
             continue
         kcount = ln - k + 1
-        keys, _isfw, edges, valid = kmer_positions(
+        keys, _isfw, edges, valid = extract_cuda(
             torch.from_numpy(seg.codes).to(table.device), k)
         found, cov, fw, bw = table.probe(keys)
         keys = keys_to_u64(keys.cpu().numpy())

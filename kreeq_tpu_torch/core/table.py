@@ -553,7 +553,7 @@ class KmerTable:
         """Count the canonical k-mers of all reads on `device`.
 
         `chunk` (bases per device step) defaults to the KREEQ_TPU_CHUNK
-        environment variable, else 8M.  Per chunk: kmer_positions, then
+        environment variable, else 8M.  Per chunk: extract_cuda, then
         count_sorted_cuda; chunk tables are tree-merged (TreeMerger;
         reference build phase: src/graph-builder.cpp:34-223).  With
         KREEQ_TPU_BUILD_CKPT set, the build is resumable
@@ -566,7 +566,7 @@ class KmerTable:
         devices), and every rank gets the whole table."""
         from ..io.fastx import iter_reads
         from ..ops import kmers as K
-        from ..ops.kernels import count_sorted_cuda
+        from ..ops.kernels import count_sorted_cuda, extract_cuda
         from ..utils import log
 
         if chunk is None:
@@ -606,7 +606,7 @@ class KmerTable:
         tm = TreeMerger(device)
         for i, buf in enumerate(K.pack_reads(read_iter(), k, chunk)):
             codes = torch.from_numpy(buf).to(device)
-            keys, _isfw, edges, valid = K.kmer_positions(codes, k)
+            keys, _isfw, edges, valid = extract_cuda(codes, k)
             tm.push(count_sorted_cuda(keys, edges, valid))
             if log.verbose_flag:
                 log.verbose(f"counted chunk {i}")

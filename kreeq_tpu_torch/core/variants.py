@@ -85,7 +85,7 @@ def detect_anomalies(dbg, seg, probed=None) -> List[Tuple[int, int]]:
     ranges of anomalous k-mer start positions.  `probed`: the table's
     (found, cov, fw, bw) of the segment's k-mers, when the caller
     probed them already."""
-    from ..ops.kmers import kmer_positions
+    from ..ops.kernels import extract_cuda
 
     k = dbg.k
     ln = len(seg)
@@ -95,7 +95,7 @@ def detect_anomalies(dbg, seg, probed=None) -> List[Tuple[int, int]]:
     codes = seg.codes
     table = dbg.table
 
-    keys, isfw, _edges, valid = kmer_positions(
+    keys, isfw, _edges, valid = extract_cuda(
         torch.from_numpy(codes).to(table.device), k)
     found, _cov, rfw, rbw = probed if probed is not None else \
         table.probe(keys)
@@ -135,7 +135,7 @@ def _probe_segments(dbg):
     a host-resident table, in batches of whole segments of up to
     _ANOMALY_BATCH positions: each batch pages the table's windows
     once, instead of once per segment."""
-    from ..ops.kmers import kmer_positions
+    from ..ops.kernels import extract_cuda
 
     k = dbg.k
     segs = dbg.genome.segments
@@ -153,7 +153,7 @@ def _probe_segments(dbg):
     for batch in batches:
         if not batch:
             continue
-        res = dbg.table.probe(torch.cat([kmer_positions(torch.from_numpy(
+        res = dbg.table.probe(torch.cat([extract_cuda(torch.from_numpy(
             segs[si].codes).to(dbg.table.device), k)[0] for si in batch]))
         lo = 0
         for si in batch:
@@ -265,10 +265,10 @@ def _extract_sentinel(codes: torch.Tensor, k: int):
     reverse complement (first-base A at the top) is strictly smaller,
     so no canonical key — table entry, valid window, or candidate
     neighbour — can ever equal one."""
-    from ..ops.kmers import kmer_positions
+    from ..ops.kernels import extract_cuda
 
     p = codes.shape[0] - k + 1
-    keys, isfw, _e, valid = kmer_positions(codes, k)
+    keys, isfw, _e, valid = extract_cuda(codes, k)
     iota = torch.arange(p, dtype=torch.int64, device=codes.device)
     if k < 32:
         sentinels = iota

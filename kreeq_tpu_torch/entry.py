@@ -53,12 +53,11 @@ def entry():
 
     from .device import resolve_device
     from .ops.index import bucket_index
-    from .ops.kernels import count_sorted_cuda
-    from .ops.kmers import kmer_positions
+    from .ops.kernels import count_sorted_cuda, extract_cuda
     from .ops.validate import validate_positions
 
     def forward(read_codes, asm_codes):
-        keys, _isfw, edges, valid = kmer_positions(read_codes, K)
+        keys, _isfw, edges, valid = extract_cuda(read_codes, K)
         tkeys, cov, fw, bw, n = count_sorted_cuda(keys, edges, valid)
         index = bucket_index(tkeys, K)
         v, missing, edge_missing = validate_positions(

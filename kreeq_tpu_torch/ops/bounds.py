@@ -9,7 +9,8 @@ and chip_smoke.py both report beside a kernel's time:
   *_bound_ms           - the least time of a kernel: the bytes its
                          inputs need (each input read once, each output
                          written once; a SENTINEL row's key only, not
-                         its counters) at the H100's 3.35 TB/s;
+                         its counters) at the H100's 3.35 TB/s (the
+                         extraction's: its codes and its outputs);
   sector_floor_ms,     - a probe's floor under random access: the
   rows_floor_ms          32-byte sectors its reads touch, per array,
                          each counted once.
@@ -70,6 +71,18 @@ def compare(name: str, got, want) -> float:
 def bound_ms(nbytes: float) -> float:
     """The least milliseconds to move `nbytes` at the H100's 3.35 TB/s."""
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+# bytes the extraction writes a window, by form: the int64 key, then
+# isfw, the edge bits and valid (records), the ctx (qv), or isfw, valid
+# and the ctx (track)
+EXTRACT_OUT_BYTES = {"records": 11, "qv": 9, "track": 11}
+
+
+def extract_bound_ms(n: int, k: int, form: str) -> float:
+    """The extraction's bound: each of the n codes read once (1 B), the
+    outputs of each of the n - k + 1 windows written once."""
+    return bound_ms(n + EXTRACT_OUT_BYTES[form] * max(n - k + 1, 0))
 
 
 def real_rows(keys) -> int:

@@ -14,6 +14,9 @@ the kernels.
   probe_qv_cuda    <- csrc/probe_qv.cu      (TPU: _probe_kernel_ind)
   probe_select_cuda <- csrc/probe_select.cu (TPU: _probe_kernel_sel2)
   probe_sorted_cuda <- csrc/probe_sorted.cu (TPU: _probe_kernel)
+  extract_cuda     <- csrc/kmer_extract.cu  (TPU: the jitted kmer_positions
+                      and validate._extract_ctx / _extract_ctx_qv, XLA
+                      fusions rather than a pl.pallas_call)
 
 The three probes search through the table's bucket directory
 (ops/index.py, `KmerTable.bucket_index`), which their callers pass on
@@ -28,7 +31,7 @@ from . import kmers as K
 from . import validate as V
 
 LAUNCHES = {"count": 0, "merge": 0, "probe_qv": 0, "probe_select": 0,
-            "probe_sorted": 0}
+            "probe_sorted": 0, "extract": 0}
 
 
 def reset_launches() -> None:
@@ -260,3 +263,62 @@ def probe_sorted_cuda(tkeys, tcov, tfw, tbw, qkeys, index=None):
             shift, qkeys.data_ptr(), q, *_ptrs(found, cov, fw, bw))
     LAUNCHES["probe_sorted"] += 1
     return found, cov, fw, bw
+
+
+# the forms of extract_cuda, in the kernel's numbering, with their plain
+# versions
+EXTRACT_FORMS = ("records", "qv", "track")
+
+
+def plain_extract(form: str):
+    """The plain version of an extraction form."""
+    return {"records": K.kmer_positions, "qv": V._extract_ctx_qv,
+            "track": V._extract_ctx}[form]
+
+
+def _by_form(form: str, keys, isfw, valid, byte):
+    """The outputs of `form` in its plain version's order (byte: the
+    edge bits of records, the ctx of qv and track)."""
+    return {"records": (keys, isfw, byte, valid), "qv": (keys, byte),
+            "track": (keys, isfw, valid, byte)}[form]
+
+
+def extract_cuda(codes, k: int, form: str = "records"):
+    """Canonical k-mer extraction of a chunk of codes (uint8 [N], 0-3
+    bases, BAD elsewhere) in one of three forms, each the output of its
+    plain version over P = N - k + 1 windows:
+      records - (keys, isfw, edges, valid), kmers.kmer_positions;
+      qv      - (keys, ctx), validate._extract_ctx_qv;
+      track   - (keys, isfw, valid, ctx), validate._extract_ctx.
+    CUDA tensors: the kmer_extract kernel.  With no window (P <= 0) the
+    outputs are empty, on either device, and nothing launches."""
+    if form not in EXTRACT_FORMS:
+        raise ValueError(f"extract: no form {form!r} (one of "
+                         f"{EXTRACT_FORMS})")
+    on_cuda = _on_cuda("extract", codes)
+    n = codes.shape[0]
+    p = n - k + 1
+    dev = codes.device
+    if p <= 0:
+        flag = torch.zeros(0, dtype=torch.bool, device=dev)
+        return _by_form(form, torch.zeros(0, dtype=torch.int64, device=dev),
+                        flag, flag.clone(), flag.to(torch.uint8))
+    if not on_cuda:
+        return plain_extract(form)(codes, k)
+    from ._build import library
+
+    if not 1 <= k <= 32:
+        raise ValueError(f"extract: k = {k} outside 1..32")
+    _check("extract codes", codes, torch.uint8, (n,))
+    keys = torch.empty(p, dtype=torch.int64, device=dev)
+    byte = torch.empty(p, dtype=torch.uint8, device=dev)
+    isfw = valid = None
+    if form != "qv":
+        isfw = torch.empty(p, dtype=torch.bool, device=dev)
+        valid = torch.empty(p, dtype=torch.bool, device=dev)
+    _launch("extract", library().kq_extract, codes.data_ptr(), n, k,
+            EXTRACT_FORMS.index(form), keys.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in (isfw, valid)),
+            byte.data_ptr())
+    LAUNCHES["extract"] += 1
+    return _by_form(form, keys, isfw, valid, byte)

@@ -86,19 +86,21 @@ def qv_sums(tkeys, tcov, tfw, tbw, qkeys, qctx, lead: int, hi: int,
 def validate_qv_sums(tkeys, tcov, tfw, tbw, codes, k: int, cutoff: int,
                      lead: int, hi: int, index=None):
     """QV sums of one assembly window (counterpart of the JAX
-    validate_qv_sums_pallas): extraction in PyTorch, then the probe
-    through ops.kernels.probe_qv_cuda, which launches the CUDA kernel
-    for CUDA tensors and runs qv_sums for CPU tensors.
+    validate_qv_sums_pallas): the extraction's qv form through
+    ops.kernels.extract_cuda, then the probe through
+    ops.kernels.probe_qv_cuda; each launches its CUDA kernel for CUDA
+    tensors and runs its plain version (_extract_ctx_qv, qv_sums) for
+    CPU tensors.
 
     codes: uint8[N] window buffer on the table's device; index: the
     table's bucket directory (ops/index.py), which the CUDA kernel
     needs and the CPU ignores.  Returns int64[2] = (#missing,
     #edge-missing) over positions lead <= i < hi."""
-    from .kernels import probe_qv_cuda
+    from .kernels import extract_cuda, probe_qv_cuda
 
     if codes.shape[0] - k + 1 <= 0:
         return torch.zeros(2, dtype=torch.int64, device=codes.device)
-    keys, ctx = _extract_ctx_qv(codes, k)
+    keys, ctx = extract_cuda(codes, k, "qv")
     return probe_qv_cuda(tkeys, tcov, tfw, tbw, keys, ctx, lead, hi, cutoff,
                          index)
 
@@ -181,18 +183,20 @@ def _classify_sel(codes, sel, k: int, cutoff: int, isfw, valid):
 def validate_positions(tkeys, tcov, tfw, tbw, codes, k: int, cutoff: int,
                        index=None):
     """Per-position classification of one assembly window (counterpart
-    of the JAX validate_positions and validate_positions_pallas):
-    extraction and classification in PyTorch, the probe through
-    ops.kernels.probe_select_cuda, which launches the CUDA kernel for
-    CUDA tensors and runs probe_select for CPU tensors.
+    of the JAX validate_positions and validate_positions_pallas): the
+    extraction's track form through ops.kernels.extract_cuda and the
+    probe through ops.kernels.probe_select_cuda, each of which launches
+    its CUDA kernel for CUDA tensors and runs its plain version
+    (_extract_ctx, probe_select) for CPU tensors; the classification
+    in PyTorch.
 
     codes: uint8[N] window buffer on the table's device; index: the
     table's bucket directory (ops/index.py), which the CUDA kernel
     needs and the CPU ignores.  Returns seven arrays of length P =
     N - k + 1: valid, missing, edge_missing (bool), cov int64, isfw
     bool, right int64, left int64."""
-    from .kernels import probe_select_cuda
+    from .kernels import extract_cuda, probe_select_cuda
 
-    keys, isfw, valid, ctx = _extract_ctx(codes, k)
+    keys, isfw, valid, ctx = extract_cuda(codes, k, "track")
     sel = probe_select_cuda(tkeys, tcov, tfw, tbw, keys, ctx, index)
     return _classify_sel(codes, sel, k, cutoff, isfw, valid)

@@ -134,17 +134,6 @@ def route(keys: torch.Tensor, payload, group):
     return rkeys, rpay, Route(order, send, recv, group)
 
 
-def _records(codes, k: int):
-    """(keys, isfw, edges, valid) of a chunk's k-mer positions; none
-    for a chunk shorter than k (an empty one included)."""
-    from ..ops.kmers import kmer_positions
-
-    if codes.shape[0] < k:
-        z = torch.zeros(0, dtype=torch.int64, device=codes.device)
-        return z, z.bool(), z.to(torch.uint8), z.bool()
-    return kmer_positions(codes, k)
-
-
 def sharded_count(codes: torch.Tensor, k: int, group):
     """Count one chunk per rank into the rank's sorted sub-table
     (counterpart of sharded_count_fn).
@@ -155,9 +144,10 @@ def sharded_count(codes: torch.Tensor, k: int, group):
     rank receives are sorted and run-aggregated by count_runs_cuda (B1
     on the card).  Returns (keys, cov, fw, bw, n) as count_runs does:
     the sub-table of the keys this rank owns, with a SENTINEL tail."""
-    from ..ops.kernels import count_runs_cuda
+    from ..ops.kernels import count_runs_cuda, extract_cuda
 
-    keys, _isfw, edges, valid = _records(codes, k)
+    # a chunk shorter than k (an empty one included) has no record
+    keys, _isfw, edges, valid = extract_cuda(codes, k)
     rkeys, (redges,), _route = route(keys[valid], (edges[valid],), group)
     skeys, order = torch.sort(rkeys)
     return count_runs_cuda(skeys, redges[order])
@@ -172,21 +162,18 @@ def sharded_probe(table, index, codes: torch.Tensor, k: int, group,
     table: this rank's sub-table (keys, cov, fw, bw), a SENTINEL tail
     allowed; index: its bucket directory (ops/index.bucket_index) for
     probe_sorted_cuda (B5) on the card, None on the CPU.  Each valid
-    position goes to its owner with its selection context
-    (validate._extract_ctx); the owner probes it and selects the right
-    and left edge counters, and (found, cov, right, left) come back to
-    validate._classify_sel.  Returns (qfound bool [P], qcov int64 [P],
+    position goes to its owner with its selection context (the track
+    form of ops/kernels.extract_cuda); the owner probes it and selects
+    the right and left edge counters, and (found, cov, right, left) come
+    back to validate._classify_sel.  Returns (qfound bool [P], qcov int64 [P],
     tot, missing, edge_missing): the positions of this rank's chunk,
     and the three totals over every rank's chunk (all_reduce, int64)."""
-    from ..ops.kernels import probe_sorted_cuda
-    from ..ops.validate import _classify_sel, _extract_ctx, _select
+    from ..ops.kernels import extract_cuda, probe_sorted_cuda
+    from ..ops.validate import _classify_sel, _select
 
     dev = codes.device
-    if codes.shape[0] < k:  # no position; the collectives still run
-        keys = torch.zeros(0, dtype=torch.int64, device=dev)
-        isfw, valid, ctx = keys.bool(), keys.bool(), keys.to(torch.uint8)
-    else:
-        keys, isfw, valid, ctx = _extract_ctx(codes, k)
+    # a chunk shorter than k has no position; the collectives still run
+    keys, isfw, valid, ctx = extract_cuda(codes, k, "track")
     at = torch.nonzero(valid).squeeze(1)
     rkeys, (rctx,), back = route(keys[at], (ctx[at],), group)
     found, cov, fw, bw = probe_sorted_cuda(*table, rkeys, index)

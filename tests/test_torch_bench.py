@@ -172,12 +172,18 @@ def test_result_lines_schema():
                                                      / st["kernel_ms"])
     for name in ("probe_qv", "probe_track"):
         assert stages[name]["sector_floor_ms"] > 0
-    assert set(stages["count"]["parts"]) == {"kmer_positions", "sort"}
+    assert set(stages["count"]["parts"]) == {"kmer_positions",
+                                             "kmer_positions_plain", "sort"}
+    for name in ("probe_qv", "probe_track"):
+        assert set(stages[name]["parts"]) == {"extract", "extract_plain"}
+    for name in ("count", "probe_qv", "probe_track"):
+        assert stages[name]["extract_bound_ms"] > 0
     assert stages["probe_qv"]["missing"] == 0
     assert stages["merge"]["na"] == stages["merge"]["nb"] \
         == stages["count"]["records"] // 2
     assert set(extra["launches"]) == {"count", "merge", "probe_qv",
-                                      "probe_select", "probe_sorted"}
+                                      "probe_select", "probe_sorted",
+                                      "extract"}
     assert "incomplete" not in extra
 
 

@@ -14,7 +14,11 @@ host-resident table, each with its own directory; the sharded path's
 owners and routing on the card against the CPU, a 1-rank NCCL
 build against the plain build, the flagship step
 (entry.entry) on the card against its run on the CPU, and the bench's
-four stages (kreeq_tpu_torch/bench.py) at bench.py's shapes.  Needs a
+four stages (kreeq_tpu_torch/bench.py) at bench.py's shapes; the
+extraction (kmer_extract) in each of its three forms on the CPU
+tests' cases (tests/test_torch_extract.py), at every k from 1 to 32, with
+P on and around its tile seams, codes that start off a 16-byte
+boundary, and P = 8,388,578.  Needs a
 CUDA device (the `gpu` marker); run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m gpu
@@ -852,3 +856,85 @@ def test_bench_stages_exact_at_bench_shapes(cuda):
     assert stages["index"]["bits"] == 22
     for key in ("count", "merge", "probe_qv", "probe_select"):
         assert kernels.LAUNCHES[key] > 0
+
+
+# ---------------------------------------------------------------------------
+# the extraction (kmer_extract)
+
+
+def _extract_both(codes, k, forms=("records", "qv", "track")):
+    """Each form of the kernel exactly against its plain version, both
+    on the card; one launch a form."""
+    from kreeq_tpu_torch.ops import kernels
+
+    for form in forms:
+        before = kernels.LAUNCHES["extract"]
+        got = kernels.extract_cuda(codes, k, form)
+        assert kernels.LAUNCHES["extract"] == before + 1
+        _same(got, kernels.plain_extract(form)(codes, k))
+
+
+@pytest.mark.parametrize("k", [1, 3, 11, 21, 31, 32])
+def test_extract_cpu_cases(cuda, k):
+    """The CPU tests' cases: BAD runs, BAD at both ends, N = k and
+    k + 1, all BAD, the last window valid at the buffer's end."""
+    from tests.test_torch_extract import CASES, _codes
+
+    for case in CASES:
+        _extract_both(torch.from_numpy(_codes(case, k)).to(cuda), k)
+
+
+@pytest.mark.parametrize("k", range(1, 33))
+def test_extract_every_k(cuda, k):
+    rng = np.random.default_rng(1000 + k)
+    codes = rng.integers(0, 4, 5003).astype(np.uint8)
+    codes[rng.random(codes.shape[0]) < 0.01] = 4
+    _extract_both(torch.from_numpy(codes).to(cuda), k)
+
+
+def _extract_tile():
+    from kreeq_tpu_torch.ops._build import library
+
+    return library().kq_extract_tile()
+
+
+@pytest.mark.parametrize("k", [1, 21, 32])
+def test_extract_tile_seams_and_alignment(cuda, k):
+    """P on and around one, two and three tile seams, the codes starting
+    at every offset from a 16-byte boundary (a slice of a larger
+    buffer), BAD codes on each side of each seam."""
+    tile = _extract_tile()
+    rng = np.random.default_rng(k)
+    big = rng.integers(0, 4, 3 * tile + 64 + 40).astype(np.uint8)
+    for seam in (tile, 2 * tile, 3 * tile):
+        big[seam - 1:seam + 1] = 4
+    big = torch.from_numpy(big).to(cuda)
+    for p in (1, 2, tile - 1, tile, tile + 1, 2 * tile - 1, 2 * tile,
+              2 * tile + 1, 3 * tile):
+        for off in (0, 1, 7, 15):
+            codes = big[off:off + p + k - 1]
+            assert codes.shape[0] - k + 1 == p
+            _extract_both(codes, k)
+
+
+def test_extract_at_the_chunk_size(cuda):
+    """P = 8,388,578: one 8M-base read chunk at k = 31, as the bench
+    counts it, with BAD runs."""
+    rng = np.random.default_rng(8)
+    codes = rng.integers(0, 4, 1 << 23).astype(np.uint8)
+    for start in rng.integers(0, 1 << 23, 300):
+        codes[start:start + rng.integers(1, 200)] = 4
+    codes = torch.from_numpy(codes).to(cuda)
+    assert codes.shape[0] - 31 + 1 == 8_388_578
+    _extract_both(codes, 31)
+
+
+def test_extract_no_window_launches_nothing(cuda):
+    from kreeq_tpu_torch.ops import kernels
+
+    before = kernels.LAUNCHES["extract"]
+    for form in ("records", "qv", "track"):
+        out = kernels.extract_cuda(torch.zeros(20, dtype=torch.uint8,
+                                               device=cuda), 21, form)
+        assert all(x.shape == (0,) and x.is_cuda for x in out)
+    assert kernels.LAUNCHES["extract"] == before
