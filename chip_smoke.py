@@ -8,22 +8,25 @@ non-zero and never prints the final line):
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: compile the CUDA kernels from ops/csrc/ with nvcc;
   3. kernels against their plain PyTorch versions on the card, at the
-     main path's shapes: the build's extraction + count + merge on the
-     card, timed;
+     main path's shapes: the build's extraction + sort + count + merge
+     on the card, timed;
      the same build again with every merge exact against the plain
      version and timed with CUDA events (the sum of the kernel's times
-     and of its bound); one 8M-base read chunk, as it is, with a
-     poly-A pile of 10^6 records and as sorted random keys (every tile
-     full of heads); the build's largest merge; the table's bucket
+     and of its bound); the sort (sort_records) on the first 8M-base
+     read chunk's records, with a poly-A pile of 10^6 records and on as
+     many random canonical keys, each beside torch.sort of its keys;
+     count_runs on that chunk, as it is, with a poly-A pile of 10^6
+     records and as sorted random keys (every tile full of heads); the
+     build's largest merge; the table's bucket
      directory (bits, build time, mean and largest bucket); one full
      4,194,304-position validate window for each validate probe and
      one full variants window of per-position sentinel keys for the
      generic probe, all three through the directory, also at 20, 21 and
      22 bits, and B3 and B5 on a table with a 10^6-row poly-A pile; the
-     extraction (kmer_extract) on the first read chunk (records form)
-     and on the validate window (qv and track forms);
-     exact equality, median times with CUDA events, each beside its
-     bound (the bytes these inputs need at 3.35 TB/s: a SENTINEL row's
+     extraction (kmer_extract) on the first read chunk (records and
+     count forms) and on the validate window (qv and track forms);
+     exact equality, median device times (torch.profiler: the card's
+     own time a call, over runs of 10 calls), each beside its bound (the bytes these inputs need at 3.35 TB/s: a SENTINEL row's
      key only) and, for the probes, the sector floor (the sectors their
      reads touch, per array, counted once);
   4. end to end: `kreeq validate -r reads.fq -f asm.fa -k 21` through
@@ -31,8 +34,8 @@ non-zero and never prints the final line):
      (planted SNV/INS/DEL, an N run, IUPAC bases, short contigs) and
      30x of 150-bp reads at 0.2% substitutions; every kernel of the path
      must have launched, the extraction once a read chunk and once a
-     QV window (B1's launches plus B3's), and Total must equal the
-     assembly's k-mer count;
+     QV window (B1's launches plus B3's), the sort once a read chunk
+     (B1's launches), and Total must equal the assembly's k-mer count;
   5. the whole slice at 0.5 Mbp on the card and on the CPU (plain
      versions), with 4,096-position variants windows: stdout and every
      output file (-o x.kreeq, x.bed, x.kwig, x.bkwig, x.hist, `union`,
@@ -163,6 +166,7 @@ import os
 import re
 import shutil
 import socket
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -171,11 +175,12 @@ import time
 import numpy as np
 
 from kreeq_tpu_torch.ops.bounds import (bound_ms, compare, count_bound_ms,
-                                        cuda_ms, extract_bound_ms,
-                                        merge_bound_ms,
+                                        cuda_times, device_ms,
+                                        extract_bound_ms, merge_bound_ms,
                                         probe_sorted_bound_ms,
                                         rows_floor_ms, sector_floor_ms,
-                                        touched_rows)
+                                        sort_bound_ms, sort_passes,
+                                        sort_passes_ms, touched_rows)
 
 K = 21
 GENOME_MBP = 12.0  # yeast scale
@@ -212,6 +217,9 @@ KERNELS = (
     # kreeq_tpu/ops/validate.py:131 and :214
     ("kmer_extract", "extract", "kreeq_tpu_torch/ops/csrc/kmer_extract.cu",
      "kreeq_tpu/ops/kmers.py:40", "validate"),
+    # the count step's sort: jax.lax.sort in _sort_keys_edges (XLA)
+    ("sort_records", "sort", "kreeq_tpu_torch/ops/csrc/sort_records.cu",
+     "kreeq_tpu/ops/kmers.py:158", "validate"),
 )
 
 
@@ -564,6 +572,33 @@ def timed_calls(module, name: str, keep=lambda args, got: (args, got)):
         setattr(module, name, wrapped)
 
 
+def sort_record(kernels, Km, keys, edges, what: str) -> dict:
+    """The sort kernel at k = K on (keys, edges), exact against its plain
+    version (a stable torch.sort and the edge gather), then timed beside
+    its bound, the plain version and the one library call, a stable
+    torch.sort of the keys alone; logged, and returned as a kernels-line
+    record."""
+    import torch
+
+    p = keys.shape[0]
+    rec = dict(
+        shape=f"P={p} k={K}, {sort_passes(K)} passes of 8-bit digits",
+        bound_ms=sort_bound_ms(p),
+        passes_ms=sort_passes_ms(p, K),
+        max_abs_err=compare(f"sort_records ({what})",
+                            kernels.sort_records_cuda(keys, edges, K),
+                            Km.sort_keys_edges(keys, edges)),
+        ms=device_ms(lambda: kernels.sort_records_cuda(keys, edges, K)),
+        plain_ms=device_ms(lambda: Km.sort_keys_edges(keys, edges)),
+        library_ms=device_ms(lambda: torch.sort(keys, stable=True)))
+    log(f"    sort_records, {what}, {rec['shape']}: kernel {rec['ms']:.3f} "
+        f"ms  plain {rec['plain_ms']:.3f} ms  torch.sort "
+        f"{rec['library_ms']:.3f} ms  bound {rec['bound_ms']:.3f} ms "
+        f"({rec['bound_ms'] / rec['ms']:.1%} of the kernel's time; its "
+        f"passes' least traffic {rec['passes_ms']:.3f} ms)  exact")
+    return rec
+
+
 def phase_kernels(fq: str, fa: str, device):
     """Kernel against plain version at the main path's shapes."""
     import torch
@@ -617,16 +652,12 @@ def phase_kernels(fq: str, fa: str, device):
     t1 = time.perf_counter()
 
     def build(tm):
-        first = None
         for buf in bufs:
-            codes = torch.from_numpy(buf).to(device)
-            keys, _isfw, edges, valid = kernels.extract_cuda(codes, K)
-            if first is None:
-                first = (keys, edges, valid)
-            tm.push(kernels.count_sorted_cuda(keys, edges, valid))
-        return first, KmerTable(K, *tm.finalize())
+            tm.push(kernels.count_chunk_cuda(torch.from_numpy(buf).to(device),
+                                             K))
+        return KmerTable(K, *tm.finalize())
 
-    first, table = build(TreeMerger(device))
+    table = build(TreeMerger(device))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     log(f"[3 kernels] ingest (parse + pack, host) {t1 - t0:.2f} s for "
@@ -636,7 +667,7 @@ def phase_kernels(fq: str, fa: str, device):
 
     # the same build again, every merge held against the plain version
     tm = CheckingMerger()
-    _first, again = build(tm)
+    again = build(tm)
     compare("the checked build's table", (again.keys, again.cov, again.fw,
                                           again.bw),
             (table.keys, table.cov, table.fw, table.bw))
@@ -649,17 +680,29 @@ def phase_kernels(fq: str, fa: str, device):
         f"{bms:.3f} ms ({bms / kms:.1%}); the largest na={na} nb={nb} "
         f"{lms:.3f} ms (bound {lbound:.3f} ms)")
 
-    skeys, sedges = Km.sort_records(*first)
-    sort_ms = cuda_ms(lambda: Km.sort_records(*first))
-    p = skeys.shape[0]
+    # the first chunk's records, as the count step sorts them
+    rkeys, redges = kernels.extract_cuda(torch.from_numpy(bufs[0]).to(
+        device), K, "count")
+    p = rkeys.shape[0]
+    res["sort_records"] = sort_record(kernels, Km, rkeys, redges, "chunk")
+    skeys, sedges = kernels.sort_records_cuda(rkeys, redges, K)
     res["count_runs"] = dict(
         shape=f"P={p}", bound_ms=count_bound_ms(skeys),
         max_abs_err=compare("count_runs", kernels.count_runs_cuda(
             skeys, sedges), Km.count_runs(skeys, sedges)),
-        ms=cuda_ms(lambda: kernels.count_runs_cuda(skeys, sedges)),
-        plain_ms=cuda_ms(lambda: Km.count_runs(skeys, sedges)))
-    log(f"    sort_records (torch.sort + edge gather) before count_runs: "
-        f"{sort_ms:.3f} ms")
+        ms=device_ms(lambda: kernels.count_runs_cuda(skeys, sedges)),
+        plain_ms=device_ms(lambda: Km.count_runs(skeys, sedges)))
+    # the sort on a poly-A pile (the chunk's first PILE records one key,
+    # all-A's, the least) and on P random canonical keys (all but surely
+    # distinct)
+    pkeys = rkeys.clone()
+    pkeys[:PILE] = torch.iinfo(torch.int64).min
+    sort_record(kernels, Km, pkeys, redges, f"poly-A pile of {PILE}")
+    gen = torch.Generator(device=device).manual_seed(5)
+    dkeys = KEY_BIAS + torch.randint(0, 4 ** K, (p,), device=device,
+                                     generator=gen)
+    sort_record(kernels, Km, dkeys, redges, "random keys")
+    del pkeys, dkeys
     # long runs: the chunk's first PILE records become one poly-A run
     # (its key, code 0, is the least key, so the order holds)
     pkeys = skeys.clone()
@@ -667,8 +710,8 @@ def phase_kernels(fq: str, fa: str, device):
     compare("count_runs (pile)", kernels.count_runs_cuda(pkeys, sedges),
             Km.count_runs(pkeys, sedges))
     log(f"    count_runs with a poly-A pile of {PILE} records, P={p}: "
-        f"kernel {cuda_ms(lambda: kernels.count_runs_cuda(pkeys, sedges)):.3f}"
-        f" ms  plain {cuda_ms(lambda: Km.count_runs(pkeys, sedges)):.3f} ms"
+        f"kernel {device_ms(lambda: kernels.count_runs_cuda(pkeys, sedges)):.3f}"
+        f" ms  plain {device_ms(lambda: Km.count_runs(pkeys, sedges)):.3f} ms"
         f"  exact")
     # every tile full of heads: P sorted, all but surely distinct keys
     gen = torch.Generator(device=device).manual_seed(7)
@@ -678,8 +721,8 @@ def phase_kernels(fq: str, fa: str, device):
             Km.count_runs(dkeys, sedges))
     log(f"    count_runs on {p} sorted random keys "
         f"({int(Km.count_runs(dkeys, sedges)[4])} distinct): kernel "
-        f"{cuda_ms(lambda: kernels.count_runs_cuda(dkeys, sedges)):.3f} ms"
-        f"  plain {cuda_ms(lambda: Km.count_runs(dkeys, sedges)):.3f} ms"
+        f"{device_ms(lambda: kernels.count_runs_cuda(dkeys, sedges)):.3f} ms"
+        f"  plain {device_ms(lambda: Km.count_runs(dkeys, sedges)):.3f} ms"
         f"  bound {count_bound_ms(dkeys):.3f} ms  exact")
     del pkeys, dkeys
 
@@ -689,8 +732,8 @@ def phase_kernels(fq: str, fa: str, device):
         bound_ms=merge_bound_ms(a[0], b[0]),
         max_abs_err=compare("merge_sorted", kernels.merge_sorted_cuda(
             *a, *b), Km.merge_sorted(*a, *b)),
-        ms=cuda_ms(lambda: kernels.merge_sorted_cuda(*a, *b)),
-        plain_ms=cuda_ms(lambda: Km.merge_sorted(*a, *b)))
+        ms=device_ms(lambda: kernels.merge_sorted_cuda(*a, *b)),
+        plain_ms=device_ms(lambda: Km.merge_sorted(*a, *b)))
     del tm, a, b
 
     genome = Genome()
@@ -705,9 +748,11 @@ def phase_kernels(fq: str, fa: str, device):
     qkeys, qctx = kernels.extract_cuda(wbuf, K, "qv")
     tab = (table.keys, table.cov, table.fw, table.bw)
     # the extraction at the main path's shapes: the first 8M-base read
-    # chunk's records, one validate window's qv and track forms
+    # chunk's records and count forms, one validate window's qv and track
+    # forms
+    chunk0 = torch.from_numpy(bufs[0]).to(device)
     ext = {}
-    for form, codes in (("records", torch.from_numpy(bufs[0]).to(device)),
+    for form, codes in (("records", chunk0), ("count", chunk0),
                         ("qv", wbuf), ("track", wbuf)):
         plain = kernels.plain_extract(form)
         ext[form] = dict(
@@ -716,12 +761,12 @@ def phase_kernels(fq: str, fa: str, device):
             max_abs_err=compare(f"kmer_extract ({form})",
                                 kernels.extract_cuda(codes, K, form),
                                 plain(codes, K)),
-            ms=cuda_ms(lambda: kernels.extract_cuda(codes, K, form)),
-            plain_ms=cuda_ms(lambda: plain(codes, K)))
-    del codes
+            ms=device_ms(lambda: kernels.extract_cuda(codes, K, form)),
+            plain_ms=device_ms(lambda: plain(codes, K)))
+    del codes, chunk0
     res["kmer_extract"] = dict(ext["records"], forms={
-        form: ext[form] for form in ("qv", "track")})
-    for form in ("qv", "track"):
+        form: ext[form] for form in ("count", "qv", "track")})
+    for form in ("count", "qv", "track"):
         r = ext[form]
         log(f"    kmer_extract {r['shape']}: kernel {r['ms']:.3f} ms  plain "
             f"{r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms "
@@ -733,7 +778,7 @@ def phase_kernels(fq: str, fa: str, device):
     bits = (starts.shape[0] - 1).bit_length() - 1
     sizes = starts[1:] - starts[:-1]
     log(f"    bucket directory: {bits} bits, {starts.shape[0]} int64 "
-        f"entries; build {cuda_ms(lambda: bucket_index(table.keys, K)):.3f}"
+        f"entries; build {device_ms(lambda: bucket_index(table.keys, K)):.3f}"
         f" ms; rows a bucket: mean {len(table) / sizes.shape[0]:.2f}, "
         f"largest {int(sizes.max())}")
     window = (qkeys[1:1 + WINDOW], qctx[1:1 + WINDOW])
@@ -748,8 +793,8 @@ def phase_kernels(fq: str, fa: str, device):
                                   9 * WINDOW + 16),
         max_abs_err=compare("probe_qv", (kernels.probe_qv_cuda(
             *args, index),), (V.qv_sums(*args),)),
-        ms=cuda_ms(lambda: kernels.probe_qv_cuda(*args, index)),
-        plain_ms=cuda_ms(lambda: V.qv_sums(*args)))
+        ms=device_ms(lambda: kernels.probe_qv_cuda(*args, index)),
+        plain_ms=device_ms(lambda: V.qv_sums(*args)))
     # the track path probes every position of the window buffer: the
     # window plus one position of context on each side
     skeys, _isfw, _valid, sctx = kernels.extract_cuda(wbuf, K, "track")
@@ -765,8 +810,8 @@ def phase_kernels(fq: str, fa: str, device):
         max_abs_err=compare("probe_select",
                             kernels.probe_select_cuda(*sargs, index),
                             V.probe_select(*sargs)),
-        ms=cuda_ms(lambda: kernels.probe_select_cuda(*sargs, index)),
-        plain_ms=cuda_ms(lambda: V.probe_select(*sargs)))
+        ms=device_ms(lambda: kernels.probe_select_cuda(*sargs, index)),
+        plain_ms=device_ms(lambda: V.probe_select(*sargs)))
     # the variants scan probes one window of positions, invalid windows
     # carrying their per-position sentinels
     vbuf = torch.from_numpy(seg.codes[:WINDOW + K - 1]).to(device)
@@ -780,8 +825,8 @@ def phase_kernels(fq: str, fa: str, device):
         max_abs_err=compare("probe_sorted",
                             kernels.probe_sorted_cuda(*vargs, index),
                             Km.probe_sorted(*vargs)),
-        ms=cuda_ms(lambda: kernels.probe_sorted_cuda(*vargs, index)),
-        plain_ms=cuda_ms(lambda: Km.probe_sorted(*vargs)))
+        ms=device_ms(lambda: kernels.probe_sorted_cuda(*vargs, index)),
+        plain_ms=device_ms(lambda: Km.probe_sorted(*vargs)))
     # the directory's size: each probe exact and timed at 20, 21 and 22
     # bits, in turns
     qb, sb = res["probe_qv"]["bound_ms"], res["probe_select"]["bound_ms"]
@@ -796,9 +841,9 @@ def phase_kernels(fq: str, fa: str, device):
         compare(f"probe_sorted ({nbits} bits)",
                 kernels.probe_sorted_cuda(*vargs, idx),
                 Km.probe_sorted(*vargs))
-        qms = cuda_ms(lambda: kernels.probe_qv_cuda(*args, idx))
-        sms = cuda_ms(lambda: kernels.probe_select_cuda(*sargs, idx))
-        vms = cuda_ms(lambda: kernels.probe_sorted_cuda(*vargs, idx))
+        qms = device_ms(lambda: kernels.probe_qv_cuda(*args, idx))
+        sms = device_ms(lambda: kernels.probe_select_cuda(*sargs, idx))
+        vms = device_ms(lambda: kernels.probe_sorted_cuda(*vargs, idx))
         qfloor = sector_floor_ms(table.keys, idx, *window, 9 * WINDOW + 16)
         sfloor = sector_floor_ms(table.keys, idx, skeys, sctx, 34 * q)
         vfloor = rows_floor_ms(table.keys, idx, vkeys, 81 * vq)
@@ -830,11 +875,11 @@ def phase_kernels(fq: str, fa: str, device):
     log(f"    a poly-A pile of {PILE} rows in one bucket (largest "
         f"{int((pidx[0][1:] - pidx[0][:-1]).max())}), one query in 8 in "
         f"that bucket: probe_qv kernel "
-        f"{cuda_ms(lambda: kernels.probe_qv_cuda(*pargs, pidx)):.3f} ms  "
-        f"plain {cuda_ms(lambda: V.qv_sums(*pargs)):.3f} ms; probe_sorted "
+        f"{device_ms(lambda: kernels.probe_qv_cuda(*pargs, pidx)):.3f} ms  "
+        f"plain {device_ms(lambda: V.qv_sums(*pargs)):.3f} ms; probe_sorted "
         f"kernel "
-        f"{cuda_ms(lambda: kernels.probe_sorted_cuda(*pvargs, pidx)):.3f} "
-        f"ms  plain {cuda_ms(lambda: Km.probe_sorted(*pvargs)):.3f} ms  "
+        f"{device_ms(lambda: kernels.probe_sorted_cuda(*pvargs, pidx)):.3f} "
+        f"ms  plain {device_ms(lambda: Km.probe_sorted(*pvargs)):.3f} ms  "
         f"exact")
     del pkeys, pidx, pq, pvq, pargs, pvargs
     for name, *_rest in KERNELS:
@@ -852,14 +897,19 @@ def phase_end_to_end(fq, fa, read_bases, kcount, ingest_s, device):
     os.environ.pop("KREEQ_TPU_PLATFORM", None)
     out, launches, phases, wall, peak = drive(
         ["kreeq", "validate", "-r", fq, "-f", fa, "-k", str(K)],
-        ("extract", "count", "merge", "probe_qv"), "validate", device)
+        ("extract", "sort", "count", "merge", "probe_qv"), "validate",
+        device)
     for line in out.splitlines():
         log("    | " + line)
-    # one extraction a read chunk (before its B1) and one a QV window
-    # (before its B3: every window holds a position, so B3 launches)
+    # one extraction and one sort a read chunk (before its B1) and one
+    # extraction a QV window (before its B3: every window holds a
+    # position, so B3 launches)
     if launches["extract"] != launches["count"] + launches["probe_qv"]:
         raise AssertionError(f"{launches['extract']} extractions, not one "
                              f"a chunk and one a window: {launches}")
+    if launches["sort"] != launches["count"]:
+        raise AssertionError(f"{launches['sort']} sorts, not one a chunk: "
+                             f"{launches}")
     build_s = phases["build k-mer DB"]
     log(f"[4 end to end] wall {wall:.2f} s: build (ingest + count + "
         f"merge) {build_s:.2f} s = {read_bases / build_s / 1e6:.2f} M "
@@ -1204,18 +1254,18 @@ def _subgraph_probes(db, cut, device):
                                    dbg.ui.cov_cutoff, dedup=False)[0])
     tab = (table.keys, table.cov, table.fw, table.bw)
     index = table.bucket_index()
-    # one key: the wrapper's own floor under CUDA events (its host work
-    # between the two events), below which no shape here can read
+    # one key: the kernel's floor on the card, below which no shape here
+    # can read
     for name, q in (("extraction", qkeys), ("round 1", rkeys),
                     ("prefilter", pkeys), ("one key", qkeys[:1])):
         args = (*tab, q)
         compare(f"probe_sorted ({name})",
                 kernels.probe_sorted_cuda(*args, index),
                 Km.probe_sorted(*args))
-        ms = cuda_ms(lambda: kernels.probe_sorted_cuda(*args, index))
+        ms = device_ms(lambda: kernels.probe_sorted_cuda(*args, index))
         log(f"    probe_sorted {name:10s} q={q.shape[0]} t={len(table)} "
             f"kernel {ms:.3f} ms  plain "
-            f"{cuda_ms(lambda: Km.probe_sorted(*args)):.3f} ms  exact")
+            f"{device_ms(lambda: Km.probe_sorted(*args)):.3f} ms  exact")
 
 
 def phase_subgraph(tmp, device):
@@ -1946,9 +1996,8 @@ def phase_sharded(fq, fa, tmp, validate_out, ooc, card, device):
     chunks = KM.pack_reads(iter_reads(fq), K, PIPE_CHUNK)
     tm = TreeMerger(device)
     for _ in range(RANKS):
-        codes = torch.from_numpy(next(chunks)).to(device)
-        keys, _isfw, edges, valid = kernels.extract_cuda(codes, K)
-        tm.push(kernels.count_sorted_cuda(keys, edges, valid))
+        tm.push(kernels.count_chunk_cuda(torch.from_numpy(next(chunks)).to(
+            device), K))
     tab = tm.finalize()
     codes = torch.from_numpy(seq_to_codes(seq)).to(device)
     p = codes.shape[0] - K + 1
@@ -2304,7 +2353,7 @@ def phase_entry(tmp, device):
         raise AssertionError(f"(a) entry() on the card {got}, on the CPU "
                              f"{want}")
     # the step again, warm: its own time, not its first call's
-    warm_ms = cuda_ms(lambda: fn(*args))
+    warm_ms = statistics.median(cuda_times(lambda: fn(*args)))
     rec["entry"] = {"numbers": got, "wall_s": wall, "warm_ms": warm_ms,
                     "launches": la}
     log(f"[13 entry] (a) entry(): (n, valid, missing, edge-missing) = "
@@ -2460,8 +2509,8 @@ def phase_bench():
             or stages["probe_qv"]["missing"] != 0:
         raise AssertionError(f"the bench's stages: {stages}")
     launches = extra["launches"]
-    check_launches(launches, ("extract", "count", "merge", "probe_qv",
-                              "probe_select"), "bench")
+    check_launches(launches, ("extract", "sort", "count", "merge",
+                              "probe_qv", "probe_select"), "bench")
     log(f"[14 bench] {last['value']:.0f} {last['unit']} "
         f"({last['vs_baseline']:.3f}x the CPU oracle on "
         f"{extra['host_cores']} cores); steps (median ms): count "
@@ -2517,8 +2566,8 @@ def phase_paths():
         for what, b5 in rec["b5"].items():
             if b5["max_abs_err"] != 0.0 or not b5["ms"] > 0:
                 raise AssertionError(f"bench_{name}: B5 {what} {b5}")
-        check_launches(rec["launches"], ("extract", "count", "probe_sorted"),
-                       f"bench_{name}")
+        check_launches(rec["launches"], ("extract", "sort", "count",
+                                         "probe_sorted"), f"bench_{name}")
         for key, n in rec["launches"].items():
             launches[key] = launches.get(key, 0) + n
         rec["wall_s"] = wall
@@ -2688,8 +2737,10 @@ def main() -> int:
          "max_abs_err": res[name]["max_abs_err"], "ms": res[name]["ms"],
          "plain_ms": res[name]["plain_ms"],
          "bound_ms": res[name]["bound_ms"], "bound_by": "bytes",
-         # no one PyTorch call computes any of the six (PERF.md)
-         "library_ms": None, "shape": res[name]["shape"],
+         # no one PyTorch call computes any of the first six (PERF.md);
+         # the sort's is torch.sort of its keys
+         "library_ms": res[name].get("library_ms"),
+         "shape": res[name]["shape"],
          **({"forms": res[name]["forms"]} if "forms" in res[name] else {}),
          "ooc_launches": ooc_launches[key],
          "sharded_launches": shard_launches[key],

@@ -6,8 +6,8 @@ throughput on one CUDA card (counterpart of bench.py).
 bench.py's stages at bench.py's shapes, each through the functions the
 production path calls:
   count  - one 8M-base random chunk (2^23 codes from default_rng(seed)),
-           k = 31: ops/kernels.extract_cuda (kmer_extract), then
-           ops/kernels.count_sorted_cuda (torch.sort, then count_runs,
+           k = 31: ops/kernels.count_chunk_cuda (the extraction's count
+           form, kmer_extract; the sort, sort_records; then count_runs,
            B1), as core/table.from_reads counts each chunk;
   QV     - the chunk's 4M-base prefix (a window drawn from the reads, so
            every k-mer is found) against the counted table, through the
@@ -22,14 +22,20 @@ production path calls:
            the first lies below every key of the second: the merge does
            not interleave.
 Before any timing, each kernel's output must equal its plain version's
-on the card (ops/kmers.kmer_positions, count_runs, merge_sorted,
-ops/validate._extract_ctx_qv, _extract_ctx, qv_sums, probe_select),
-and the window's #missing must be 0.  Each step, each
-kernel and each plain version is timed with CUDA events: a warm-up, then
-REPS calls; a stage reports the median and the quartiles.  Beside each
-kernel's time stand its bound (ops/bounds.py: the bytes its inputs need
-at 3.35 TB/s) and, for the probes, the sector floor, as chip_smoke
-phase 3 computes them.
+on the card (ops/kmers.count_records, sort_keys_edges, count_runs,
+merge_sorted, ops/validate._extract_ctx_qv, _extract_ctx, qv_sums,
+probe_select),
+and the window's #missing must be 0.  Each step is timed with CUDA
+events: a warm-up, then REPS runs of ops/bounds.BATCH back-to-back
+calls, so a step's time holds its host work.  Each kernel, each plain
+version and torch.sort are timed on the card (ops/bounds.device_times:
+the device events torch.profiler records over each of REPS runs of
+BATCH calls), so a kernel's time is its own and not its wrapper's.  A
+stage reports the median and the quartiles.  Beside each kernel's time
+stand its bound (ops/bounds.py: the bytes its inputs need at
+3.35 TB/s) and, for the probes, the sector floor, as chip_smoke phase 3
+computes them; beside the sort's, the least traffic of its passes
+(sort_passes_ms).
 
 It prints one JSON line after every stage, each a superset of the one
 before:
@@ -74,7 +80,7 @@ import numpy as np
 K = 31
 CHUNK = 1 << 23  # bases of the counted chunk (bench.py)
 PCHUNK = 1 << 22  # bases of the probed window, the chunk's prefix
-REPS = 40  # timed calls a measurement: 10 beyond each quartile
+REPS = 40  # timed runs a measurement: 10 beyond each quartile
 METRIC = "read kmers counted/s/chip"
 UNIT = "kmers/s"
 DEADLINE_S = 1200.0
@@ -94,14 +100,13 @@ def genome(seed: int, bases: int) -> np.ndarray:
 
 
 def count_step(codes, k: int):
-    """One chunk counted as core/table.from_reads counts it: canonical
-    extraction (ops/kernels.extract_cuda), then the sort and B1
-    (ops/kernels.count_sorted_cuda).  Returns (keys, cov, fw, bw, n) of
-    P rows, a SENTINEL tail after n."""
-    from .ops.kernels import count_sorted_cuda, extract_cuda
+    """One chunk counted as core/table.from_reads counts it
+    (ops/kernels.count_chunk_cuda): the extraction's count form
+    (kmer_extract), the sort (sort_records), then B1 (count_runs).
+    Returns (keys, cov, fw, bw, n) of P rows, a SENTINEL tail after n."""
+    from .ops.kernels import count_chunk_cuda
 
-    keys, _isfw, edges, valid = extract_cuda(codes, k)
-    return count_sorted_cuda(keys, edges, valid)
+    return count_chunk_cuda(codes, k)
 
 
 def qv_step(table, index, asm, k: int):
@@ -149,7 +154,9 @@ def summary(times) -> dict:
 class Bench:
     """bench.py's stages on `device`.  Each stage method checks its
     kernel against the plain version, times the step, its kernel and the
-    plain version with `timer(fn, reps)` (milliseconds per call) and
+    plain version (milliseconds per call: a step's with
+    ops/bounds.cuda_times, a kernel's and a plain version's with
+    device_times, or both with `timer(fn, reps)` where one is given) and
     records them in `extra`; `line()` is the JSON line of what has been
     measured so far.  The caller puts the card's record ("device") and
     the CPU oracle's ("cpu_oracle") into `extra` before `line()`."""
@@ -159,14 +166,18 @@ class Bench:
                  reps: int = REPS, timer=None):
         import torch
 
-        from .ops.bounds import cuda_times
+        from .ops.bounds import BATCH, cuda_times, device_times
 
         self.k, self.chunk = k, chunk
         self.reps = reps
         self.timer = timer or cuda_times
+        self.device_timer = timer or device_times
         self.extra = {"k": k, "chunk_bases": chunk, "probe_bases": pchunk,
-                      "seed": seed, "timing": f"CUDA events: a warm-up, "
-                      f"then {reps} calls", "stages": {}}
+                      "seed": seed, "timing": f"a warm-up, then {reps} "
+                      f"runs of {BATCH} back-to-back calls: steps between "
+                      f"CUDA events, kernels and plain versions by their "
+                      f"device events under torch.profiler",
+                      "stages": {}}
         self.rate = 0.0
         self.codes = torch.from_numpy(genome(seed, chunk)).to(device)
         self.asm = self.codes[:pchunk]
@@ -174,7 +185,12 @@ class Bench:
         self.index = None  # the table's bucket directory
 
     def times(self, fn) -> dict:
+        """A step's times."""
         return summary(self.timer(fn, self.reps))
+
+    def dtimes(self, fn) -> dict:
+        """A kernel's or a plain version's times on the card."""
+        return summary(self.device_timer(fn, self.reps))
 
     def _kernel(self, name, kernel, plain, bound, **more) -> dict:
         """A stage's kernel record: its times, its plain version's, and
@@ -193,46 +209,57 @@ class Bench:
 
         k, asm = self.k, self.asm
         return {"parts": {
-                    "extract": self.times(lambda: extract_cuda(asm, k, form)),
-                    "extract_plain": self.times(
+                    "extract": self.dtimes(
+                        lambda: extract_cuda(asm, k, form)),
+                    "extract_plain": self.dtimes(
                         lambda: plain_extract(form)(asm, k))},
                 "extract_bound_ms": extract_bound_ms(asm.shape[0], k, form)}
 
     def count(self) -> None:
-        """The count step, its parts (the extraction, the sort, B1), the
-        extraction against kmer_positions and B1 against count_runs."""
-        from .ops.bounds import compare, count_bound_ms, extract_bound_ms
-        from .ops.kernels import count_runs_cuda, extract_cuda
-        from .ops.kmers import count_runs, kmer_positions, sort_records
+        """The count step, its parts (the extraction's count form, the
+        sort, B1; torch.sort of the keys beside the sort), the
+        extraction against count_records, the sort against
+        sort_keys_edges and B1 against count_runs."""
+        import torch
+
+        from .ops.bounds import (compare, count_bound_ms, extract_bound_ms,
+                                 sort_bound_ms, sort_passes, sort_passes_ms)
+        from .ops.kernels import (count_runs_cuda, extract_cuda,
+                                  sort_records_cuda)
+        from .ops.kmers import count_records, count_runs, sort_keys_edges
 
         codes, k = self.codes, self.k
-        recs = extract_cuda(codes, k)
-        compare("kmer_extract (records)", recs, kmer_positions(codes, k))
-        keys, _isfw, edges, valid = recs
-        skeys, sedges = sort_records(keys, edges, valid)
+        recs = extract_cuda(codes, k, "count")
+        compare("kmer_extract (count)", recs, count_records(codes, k))
+        skeys, sedges = sort_records_cuda(*recs, k)
+        compare("sort_records", (skeys, sedges), sort_keys_edges(*recs))
         got = count_runs_cuda(skeys, sedges)
         compare("count_runs", got, count_runs(skeys, sedges))
         self.table = count_step(codes, k)
         compare("the count step", self.table, got)
         step = self.times(lambda: count_step(codes, k))
-        # the part keeps the name earlier lines gave it; it times the
-        # kernel now, and the plain version under a name of its own
-        parts = {"kmer_positions": self.times(
-                     lambda: extract_cuda(codes, k)),
-                 "kmer_positions_plain": self.times(
-                     lambda: kmer_positions(codes, k)),
-                 "sort": self.times(
-                     lambda: sort_records(keys, edges, valid))}
+        parts = {"extract": self.dtimes(
+                     lambda: extract_cuda(codes, k, "count")),
+                 "extract_plain": self.dtimes(
+                     lambda: count_records(codes, k)),
+                 "sort": self.dtimes(lambda: sort_records_cuda(*recs, k)),
+                 "sort_plain": self.dtimes(lambda: sort_keys_edges(*recs)),
+                 "torch_sort": self.dtimes(
+                     lambda: torch.sort(recs[0], stable=True))}
         rec = self._kernel(
             "count_runs (B1)",
-            self.times(lambda: count_runs_cuda(skeys, sedges)),
-            self.times(lambda: count_runs(skeys, sedges)),
+            self.dtimes(lambda: count_runs_cuda(skeys, sedges)),
+            self.dtimes(lambda: count_runs(skeys, sedges)),
             count_bound_ms(skeys), records=int(skeys.shape[0]),
             n=int(self.table[4]))
         self.extra["stages"]["count"] = {
             "step": step, "parts": parts,
             "extract_bound_ms": extract_bound_ms(codes.shape[0], k,
-                                                 "records"), **rec}
+                                                 "count"),
+            "sort_bound_ms": sort_bound_ms(skeys.shape[0]),
+            "sort_passes_ms": sort_passes_ms(skeys.shape[0], k),
+            "sort_digits": f"{sort_passes(k)} passes of 8-bit digits",
+            **rec}
         self.rate = (self.chunk - k + 1) / (step["median_ms"] / 1e3)
         self.extra["count_step_ms"] = step["median_ms"]
 
@@ -270,8 +297,8 @@ class Bench:
         # selected counters; two int64 sums out
         rec = self._kernel(
             "probe_qv (B3)",
-            self.times(lambda: probe_qv_cuda(*args, index)),
-            self.times(lambda: qv_sums(*args)),
+            self.dtimes(lambda: probe_qv_cuda(*args, index)),
+            self.dtimes(lambda: qv_sums(*args)),
             bound_ms(9 * p + 32 * touched_rows(tkeys, qkeys) + 16),
             sector_floor_ms=sector_floor_ms(tkeys, index, qkeys, qctx,
                                             9 * p + 16),
@@ -310,8 +337,8 @@ class Bench:
         # right, left out
         rec = self._kernel(
             "probe_select (B4)",
-            self.times(lambda: probe_select_cuda(*sargs, index)),
-            self.times(lambda: probe_select(*sargs)),
+            self.dtimes(lambda: probe_select_cuda(*sargs, index)),
+            self.dtimes(lambda: probe_select(*sargs)),
             bound_ms(9 * q + 32 * touched_rows(tkeys, skeys) + 25 * q),
             sector_floor_ms=sector_floor_ms(tkeys, index, skeys, sctx,
                                             34 * q),
@@ -322,7 +349,8 @@ class Bench:
 
     def merge(self) -> None:
         """The merge of the table's two halves (B2) against
-        merge_sorted; the step is the kernel's call."""
+        merge_sorted; the step is the kernel's call, timed between CUDA
+        events as a step and by its device time as a kernel."""
         from .ops.bounds import compare, merge_bound_ms
         from .ops.kmers import merge_sorted
 
@@ -330,8 +358,9 @@ class Bench:
         compare("merge_sorted", merge_step(a, b), merge_sorted(*a, *b))
         step = self.times(lambda: merge_step(a, b))
         h = a[0].shape[0]
-        rec = self._kernel("merge_sorted (B2)", step,
-                           self.times(lambda: merge_sorted(*a, *b)),
+        rec = self._kernel("merge_sorted (B2)",
+                           self.dtimes(lambda: merge_step(a, b)),
+                           self.dtimes(lambda: merge_sorted(*a, *b)),
                            merge_bound_ms(a[0], b[0]), na=h,
                            nb=b[0].shape[0])
         self.extra["stages"]["merge"] = {"step": step, **rec}

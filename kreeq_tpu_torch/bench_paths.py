@@ -11,8 +11,9 @@
                   table's `probe_device` (the generic probe, B5) was
                   given, and the largest batch itself;
   hold_b5       - B5 on such a batch against its plain version
-                  (ops/kmers.probe_sorted), exact, then timed with CUDA
-                  events beside its bound and sector floor.
+                  (ops/kmers.probe_sorted), exact, then its device
+                  time (ops/bounds.device_ms) beside its bound and
+                  sector floor.
 """
 
 from __future__ import annotations
@@ -82,12 +83,13 @@ def probes(table):
 def hold_b5(table, qkeys) -> dict:
     """B5 (ops/kernels.probe_sorted_cuda, through the table's bucket
     directory) on `qkeys` against the plain ops/kmers.probe_sorted on the
-    same inputs: raises unless exact.  On CUDA both are then timed with
-    CUDA events (median of 5 after a warm-up); on the CPU the wrapper is
+    same inputs: raises unless exact.  On CUDA both are then timed on
+    the card (ops/bounds.device_ms: median of 5 runs under
+    torch.profiler, after a warm-up); on the CPU the wrapper is
     the plain version and nothing is timed.  Beside the times stand the
     bound (ops/bounds.probe_sorted_bound_ms) and the sector floor
     (rows_floor_ms)."""
-    from .ops.bounds import (compare, cuda_ms, probe_sorted_bound_ms,
+    from .ops.bounds import (compare, device_ms, probe_sorted_bound_ms,
                              rows_floor_ms)
     from .ops.kernels import probe_sorted_cuda
     from .ops.kmers import probe_sorted
@@ -106,8 +108,8 @@ def hold_b5(table, qkeys) -> dict:
                                             81 * q),
            "ms": None, "plain_ms": None, "share_of_bound": None}
     if qkeys.is_cuda:
-        rec["ms"] = cuda_ms(lambda: probe_sorted_cuda(*tab, qkeys, index))
-        rec["plain_ms"] = cuda_ms(lambda: probe_sorted(*tab, qkeys))
+        rec["ms"] = device_ms(lambda: probe_sorted_cuda(*tab, qkeys, index))
+        rec["plain_ms"] = device_ms(lambda: probe_sorted(*tab, qkeys))
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
     return rec
 

@@ -7,14 +7,15 @@ fill.  Its cold start is the nvcc build of ops/csrc/ into `_build/`
 (ops/_build.py: once per source hash, kept across processes), then the
 library load and the first launch of each kernel in a process.  On the
 card, warmup builds and loads the library, then runs each program once
-at the JAX set's shapes: the extraction (kmer_extract) and the count
-(B1) on one read chunk, the merge (B2) on equal pow2 pairs up the
-build tree, the table's bucket directory (ops/index.py) and both
-validate probes (B3, B4) for each table size, and the variants scan
-with the generic probe (B5) on one window for each table size; the
-probes and the scan launch the extraction again, in their forms.  On
-the CPU it runs the plain versions of the same set.  A build or launch
-failure raises: nothing falls back.
+at the JAX set's shapes: the extraction (kmer_extract, its count
+form), the sort (sort_records) and the count (B1) on one read chunk,
+the merge (B2) on equal pow2 pairs up the build tree, the table's
+bucket directory (ops/index.py) and both validate probes (B3, B4) for
+each table size, and the variants scan with the generic probe (B5) on
+one window for each table size; the probes and the scan launch the
+extraction again, in their forms.  On the CPU it runs the plain
+versions of the same set.  A build or launch failure raises: nothing
+falls back.
 
 Usage: kreeq warmup [-k <len>] [--chunk N] [--window N] [--small]
 """
@@ -34,8 +35,8 @@ def _compile_set(k: int, chunk: int, window: int, small: bool) -> int:
                                  _variants_window_cap)
     from ..device import resolve_device
     from ..ops.index import bucket_index
-    from ..ops.kernels import (count_sorted_cuda, extract_cuda,
-                               merge_sorted_cuda, probe_sorted_cuda)
+    from ..ops.kernels import (count_chunk_cuda, merge_sorted_cuda,
+                               probe_sorted_cuda)
     from ..ops.validate import validate_positions, validate_qv_sums
     from ..utils import log
 
@@ -67,14 +68,10 @@ def _compile_set(k: int, chunk: int, window: int, small: bool) -> int:
         log.verbose(f"warmup: {name} ({dt:.1f}s)")
         return out
 
-    # 1. extraction + count at the standard chunk
+    # 1. extraction + sort + count at the standard chunk
     cbuf = codes(chunk)
-
-    def count():
-        keys, _isfw, edges, valid = extract_cuda(cbuf, k)
-        return count_sorted_cuda(keys, edges, valid)
-
-    tkeys, cov, fw, bw, _n = tick(f"count @{chunk}", count)
+    tkeys, cov, fw, bw, _n = tick(f"count @{chunk}",
+                                  lambda: count_chunk_cuda(cbuf, k))
     rows = tkeys.shape[0]
 
     # 2. merge shapes: equal pow2 pairs up the build tree, up to the

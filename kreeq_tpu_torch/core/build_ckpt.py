@@ -169,7 +169,7 @@ def from_reads_checkpointed(read_files, k: int, ckpt_dir: str, device,
     None)."""
     from ..io.fastx import iter_reads
     from ..ops import kmers as K
-    from ..ops.kernels import count_sorted_cuda, extract_cuda
+    from ..ops.kernels import count_chunk_cuda
     from ..parallel.sharded import sharded_merge
     from ..utils import log
     from .table import (KmerTable, ShardedCounter, TreeMerger, _to_host,
@@ -296,9 +296,8 @@ def from_reads_checkpointed(read_files, k: int, ckpt_dir: str, device,
             if group is not None:
                 sc.add(buf)
             else:
-                codes = torch.from_numpy(buf).to(device)
-                keys, _isfw, edges, valid = extract_cuda(codes, k)
-                tm.push(count_sorted_cuda(keys, edges, valid))
+                tm.push(count_chunk_cuda(torch.from_numpy(buf).to(device),
+                                         k))
             in_batch += 1
             if log.verbose_flag:
                 log.verbose(f"counted chunk {chunks_done + in_batch - 1} "

@@ -53,12 +53,11 @@ def entry():
 
     from .device import resolve_device
     from .ops.index import bucket_index
-    from .ops.kernels import count_sorted_cuda, extract_cuda
+    from .ops.kernels import count_chunk_cuda
     from .ops.validate import validate_positions
 
     def forward(read_codes, asm_codes):
-        keys, _isfw, edges, valid = extract_cuda(read_codes, K)
-        tkeys, cov, fw, bw, n = count_sorted_cuda(keys, edges, valid)
+        tkeys, cov, fw, bw, n = count_chunk_cuda(read_codes, K)
         index = bucket_index(tkeys, K)
         v, missing, edge_missing = validate_positions(
             tkeys, cov, fw, bw, asm_codes, K, 0, index)[:3]

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "kq_probe_sorted": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P,
                         _P],
     "kq_extract": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "kq_sort_records": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -124,7 +125,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        for name in ("kq_count_tile", "kq_merge_tile", "kq_extract_tile"):
+        for name in ("kq_count_tile", "kq_merge_tile", "kq_extract_tile",
+                     "kq_sort_tile"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
         lib.kq_error_string.argtypes = [ctypes.c_int]

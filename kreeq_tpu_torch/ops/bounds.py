@@ -2,15 +2,23 @@
 
 One copy of the arithmetic that the bench (kreeq_tpu_torch/bench.py)
 and chip_smoke.py both report beside a kernel's time:
-  cuda_times / cuda_ms - times of a call between CUDA events, after a
-                         warm-up;
+  cuda_times           - times of a call, from runs of BATCH calls
+                         between CUDA events, after a warm-up: a
+                         step's time with its host work;
+  device_times /       - the card's own time a call: the summed
+  device_ms              durations of the kernels, copies and fills
+                         that torch.profiler records over runs of BATCH
+                         calls (a kernel's time, not its wrapper's);
   compare              - exact equality of a kernel's outputs with its
                          plain version's;
   *_bound_ms           - the least time of a kernel: the bytes its
                          inputs need (each input read once, each output
                          written once; a SENTINEL row's key only, not
                          its counters) at the H100's 3.35 TB/s (the
-                         extraction's: its codes and its outputs);
+                         extraction's: its codes and its outputs; the
+                         sort's: 9 B a record read and written);
+  sort_passes_ms       - the least time of the sort kernel's own
+                         passes, beside (not in place of) its bound;
   sector_floor_ms,     - a probe's floor under random access: the
   rows_floor_ms          32-byte sectors its reads touch, per array,
                          each counted once.
@@ -30,9 +38,13 @@ from .index import bucket_of
 HBM_BYTES_PER_S = 3.35e12  # the H100's peak memory rate (data sheet)
 
 
+# calls of a function in one timed run: the card runs them back to back
+BATCH = 10
+
+
 def cuda_times(fn, reps: int = 5) -> list:
-    """Milliseconds of each of `reps` calls of fn() between CUDA events,
-    after a warm-up call."""
+    """Milliseconds a call of fn() in each of `reps` runs of BATCH calls
+    between CUDA events, after a warm-up call."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -40,16 +52,47 @@ def cuda_times(fn, reps: int = 5) -> list:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(BATCH):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / BATCH)
     return times
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median milliseconds of fn() between CUDA events, after a warm-up."""
-    return statistics.median(cuda_times(fn, reps))
+def device_times(fn, reps: int = 5) -> list:
+    """Milliseconds of the card's time a call of fn() in each of `reps`
+    runs of BATCH calls under torch.profiler, after a warm-up call: the
+    summed durations of the device events (kernels, copies, fills) a
+    run recorded, over BATCH.  A run that records no device event (seen
+    on the H100 in a process's first profiled run) is made again, at
+    most twice; then this raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run() -> float:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(BATCH):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        us = run() or run() or run()
+        if us <= 0:
+            raise RuntimeError("torch.profiler recorded no device time")
+        times.append(us / 1e3 / BATCH)
+    return times
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds of the card's time a call of fn()
+    (device_times)."""
+    return statistics.median(device_times(fn, reps))
 
 
 def compare(name: str, got, want) -> float:
@@ -74,15 +117,35 @@ def bound_ms(nbytes: float) -> float:
 
 
 # bytes the extraction writes a window, by form: the int64 key, then
-# isfw, the edge bits and valid (records), the ctx (qv), or isfw, valid
-# and the ctx (track)
-EXTRACT_OUT_BYTES = {"records": 11, "qv": 9, "track": 11}
+# isfw, the edge bits and valid (records), the ctx (qv), isfw, valid and
+# the ctx (track), or the edge bits (count)
+EXTRACT_OUT_BYTES = {"records": 11, "qv": 9, "track": 11, "count": 9}
 
 
 def extract_bound_ms(n: int, k: int, form: str) -> float:
     """The extraction's bound: each of the n codes read once (1 B), the
     outputs of each of the n - k + 1 windows written once."""
     return bound_ms(n + EXTRACT_OUT_BYTES[form] * max(n - k + 1, 0))
+
+
+def sort_passes(k: int) -> int:
+    """The sort kernel's passes at k: 8-bit digits over the 2k bits a
+    canonical key can set."""
+    return -(-2 * k // 8)
+
+
+def sort_bound_ms(p: int) -> float:
+    """The sort's bound: each of the p records (an 8-byte key and its
+    edge byte) read once and written once."""
+    return bound_ms(18 * p)
+
+
+def sort_passes_ms(p: int, k: int) -> float:
+    """The least time of the sort kernel's own passes with 8-bit digits:
+    the histogram's read of every key (8 B a record), then per pass each
+    record read once and written once (9 + 9 B).  Not the function's
+    bound (sort_bound_ms): the traffic this design cannot go below."""
+    return bound_ms((8 + 18 * sort_passes(k)) * p)
 
 
 def real_rows(keys) -> int:

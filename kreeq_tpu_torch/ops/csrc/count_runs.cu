@@ -3,8 +3,8 @@
 //
 // Replaces: kreeq_tpu/ops/pallas_kernels.py `_kernel` (:59, launched by
 // `_run_pallas_x32` :221, wrapped by `count_sorted_pallas`), the contract of
-// kreeq_tpu/ops/kmers.py `count_sorted` after its sort.  The sort stays
-// outside the kernel (torch.sort plus a gather of the edge bytes).
+// kreeq_tpu/ops/kmers.py `count_sorted` after its sort.  The sort is a
+// kernel of its own (sort_records.cu).
 //
 // Input: P sorted int64 keys (SENTINEL rows last) and P uint8 edge bytes.
 // Output: for each distinct key, compacted to the front: the key,

@@ -13,7 +13,7 @@
 // `code & 3` and flags the window invalid; the bases before position 0
 // and after the last window are BAD.  Keys are int64 holding u64 ^ 2^63
 // (kreeq_tpu_torch/constants.py); the u64 work happens in registers and
-// the bias only at the store.  Three forms (`form`):
+// the bias only at the store.  Four forms (`form`):
 //   0 records: keys (an invalid window keeps the key its codes & 3
 //     give), isfw, edges (bit w = fw edge to base w, bit 4+w = bw edge
 //     to base w), valid;
@@ -21,15 +21,19 @@
 //     selector, 4-7 the left: 1-4 = fw0-3, 5-8 = bw0-3, 0 = no
 //     neighbour base on that side);
 //   2 track: keys (SENTINEL where invalid), isfw, valid, ctx (as qv, but
-//     a side without a neighbour keeps its selector).
+//     a side without a neighbour keeps its selector);
+//   3 count: the records the count step sorts, keys (SENTINEL where
+//     invalid) and edges (0 where invalid): what ops/kmers.count_records
+//     makes of the records form.
 // The selectors are the JAX `_classify`'s choice: right = isfw ? fw[nc]
 // : bw[3 - nc], left = isfw ? bw[pc] : fw[3 - pc].
 //
 // Bound on the H100: memory traffic.  N code bytes read, and per window
-// 11 B written (records, track) or 9 B (qv): for an 8,388,608-base
-// chunk at k = 31 about 101 MB, or 0.030 ms at 3.35 TB/s.  The plain
-// version's k shifted ORs over int64 arrays (O(kN) work and about 2k
-// passes over device memory) are what this kernel exists to remove.
+// 11 B written (records, track) or 9 B (qv, count): for an
+// 8,388,608-base chunk at k = 31 about 101 MB (records) or 84 MB
+// (count), 0.030 or 0.025 ms at 3.35 TB/s.  The per-window arithmetic
+// (a funnel shift, a bit reversal, a mask test) is far below the rate
+// that would bound it.
 //
 // Design: one block a tile of XTILE windows, O(1) work a window.
 //  - Staging: the tile's codes with a halo, from 16-31 bytes before the
@@ -45,7 +49,12 @@
 //    k bits of the BAD masks (three 16-bit masks, one shift); the bases
 //    before and after come from the same words.
 //  - Stores: thread t takes windows base + t + j * XT, so each warp
-//    store is 256 contiguous bytes of keys and 32 of each byte output.
+//    store is 256 contiguous bytes of keys and 32 of each byte output:
+//    whole sectors.
+// A persistent design (a few blocks a SM walking tiles, the next tiles'
+// codes in flight through a 3-stage cp.async ring) measured no faster on
+// the H100, within 3% either way in every form (tools/ab_count.py
+// device times), so the simpler one stays.
 
 #include "runs.cuh"
 
@@ -59,7 +68,7 @@ constexpr int XTILE = XT * XI;   // windows per tile
 constexpr int XREGION = XTILE + 64;
 constexpr int XWORDS = XREGION / 16;
 
-constexpr int RECORDS = 0, QV = 1, TRACK = 2;
+constexpr int RECORDS = 0, QV = 1, TRACK = 2, COUNT = 3;
 
 using u64 = unsigned long long;
 
@@ -131,23 +140,29 @@ __global__ void __launch_bounds__(XT)
     const bool has_prev = !((badm[lp >> 4] >> (lp & 15)) & 1);
     const bool has_next = !((badm[ln >> 4] >> (ln & 15)) & 1);
     const int64_t key = (int64_t)((fwd ? fw : rc) ^ (1ull << 63));
-    if (FORM == RECORDS) {
+    if constexpr (FORM == RECORDS || FORM == COUNT) {
       const int e_fw = (has_next ? 1 << nc : 0) | (has_prev ? 16 << pc : 0);
       const int e_rc =
           (has_prev ? 1 << (3 - pc) : 0) | (has_next ? 1 << (7 - nc) : 0);
-      keys[i] = key;
-      byte_out[i] = (uint8_t)(fwd ? e_fw : e_rc);
+      const int e = fwd ? e_fw : e_rc;
+      if constexpr (FORM == RECORDS) {
+        keys[i] = key;
+        byte_out[i] = (uint8_t)e;
+      } else {
+        keys[i] = ok ? key : SENT;
+        byte_out[i] = ok ? (uint8_t)e : 0;
+      }
     } else {
       int sel_r = fwd ? 1 + nc : 8 - nc;
       int sel_l = fwd ? 5 + pc : 4 - pc;
-      if (FORM == QV) {
+      if constexpr (FORM == QV) {
         if (!has_next) sel_r = 0;
         if (!has_prev) sel_l = 0;
       }
       keys[i] = ok ? key : SENT;
       byte_out[i] = (uint8_t)(sel_r | sel_l << 4);
     }
-    if (FORM != QV) {
+    if constexpr (FORM == RECORDS || FORM == TRACK) {
       isfw_out[i] = fwd;
       valid_out[i] = ok;
     }
@@ -160,28 +175,32 @@ __global__ void __launch_bounds__(XT)
 // Windows of a tile (the card tests put P on and around its seams).
 extern "C" int kq_extract_tile() { return kq::XTILE; }
 
-// codes [n]; 1 <= k <= 32; form 0 records, 1 qv, 2 track.  Outputs [P],
-// P = n - k + 1, overwritten: keys; bytes (edges for records, ctx for
-// qv and track); isfw and valid (records and track; null for qv).  No
-// launch when P <= 0.
+// codes [n]; 1 <= k <= 32; form 0 records, 1 qv, 2 track, 3 count.
+// Outputs [P], P = n - k + 1, overwritten: keys; bytes
+// (edges for records and count, ctx for qv and track); isfw and valid
+// (records and track; null for qv and count).  No launch when P <= 0.
 extern "C" int kq_extract(const uint8_t* codes, int64_t n, int64_t k,
                           int64_t form, int64_t* keys, uint8_t* isfw,
                           uint8_t* valid, uint8_t* bytes, void* stream) {
   using namespace kq;
-  if (k < 1 || k > 32 || form < RECORDS || form > TRACK)
+  if (k < 1 || k > 32 || form < RECORDS || form > COUNT)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t p = n - k + 1;
   if (p <= 0) return 0;
   const unsigned blocks = (unsigned)ceil_div(p, XTILE);
+  const int kk = (int)k;
   if (form == RECORDS)
-    extract<RECORDS><<<blocks, XT, 0, s>>>(codes, n, (int)k, keys, isfw,
-                                           valid, bytes);
+    extract<RECORDS><<<blocks, XT, 0, s>>>(codes, n, kk, keys, isfw, valid,
+                                           bytes);
   else if (form == QV)
-    extract<QV><<<blocks, XT, 0, s>>>(codes, n, (int)k, keys, isfw, valid,
+    extract<QV><<<blocks, XT, 0, s>>>(codes, n, kk, keys, isfw, valid,
                                       bytes);
+  else if (form == TRACK)
+    extract<TRACK><<<blocks, XT, 0, s>>>(codes, n, kk, keys, isfw, valid,
+                                         bytes);
   else
-    extract<TRACK><<<blocks, XT, 0, s>>>(codes, n, (int)k, keys, isfw,
-                                         valid, bytes);
+    extract<COUNT><<<blocks, XT, 0, s>>>(codes, n, kk, keys, isfw, valid,
+                                         bytes);
   return (int)cudaGetLastError();
 }

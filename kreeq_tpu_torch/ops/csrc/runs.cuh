@@ -1,10 +1,11 @@
-// Shared device code of the run kernels (count_runs.cu, merge_sorted.cu)
-// and the probes (probe_qv.cu, probe_select.cu, probe_sorted.cu): the key
+// Shared device code of the run kernels (count_runs.cu, merge_sorted.cu),
+// the probes (probe_qv.cu, probe_select.cu, probe_sorted.cu), the
+// extraction (kmer_extract.cu) and the sort (sort_records.cu): the key
 // and counter conventions, the search through a table's bucket
 // directory, the probes' counter selection, a block-wide scan,
 // the one-block scan of per-tile counts that gives
-// each tile its first output row, the asynchronous shared-memory copy
-// and the SENTINEL fill of an output's tail.
+// each tile its first output row, the asynchronous shared-memory copy,
+// the device's SM count and the SENTINEL fill of an output's tail.
 //
 // Conventions (kreeq_tpu_torch/constants.py): a key is int64 holding
 // u64 ^ 2^63, so signed order is the packed k-mer order and the
@@ -147,6 +148,18 @@ __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
                    : "memory");
+}
+
+// The SMs of the current device, read once per device.
+inline int sm_count() {
+  static int cached[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (cached[dev] == 0)
+    cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
+                           dev);
+  return cached[dev] > 0 ? cached[dev] : 132;
 }
 
 // Rows [*start, n) (all rows when start is null) become SENTINEL rows

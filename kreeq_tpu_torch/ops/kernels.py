@@ -17,6 +17,11 @@ the kernels.
   extract_cuda     <- csrc/kmer_extract.cu  (TPU: the jitted kmer_positions
                       and validate._extract_ctx / _extract_ctx_qv, XLA
                       fusions rather than a pl.pallas_call)
+  sort_records_cuda <- csrc/sort_records.cu (TPU: jax.lax.sort in
+                      kmers._sort_keys_edges, an XLA sort)
+
+count_chunk_cuda is the count step of one chunk: the extraction's count
+form, the sort, then count_runs.
 
 The three probes search through the table's bucket directory
 (ops/index.py, `KmerTable.bucket_index`), which their callers pass on
@@ -31,7 +36,7 @@ from . import kmers as K
 from . import validate as V
 
 LAUNCHES = {"count": 0, "merge": 0, "probe_qv": 0, "probe_select": 0,
-            "probe_sorted": 0, "extract": 0}
+            "probe_sorted": 0, "extract": 0, "sort": 0}
 
 
 def reset_launches() -> None:
@@ -110,10 +115,54 @@ def count_runs_cuda(skeys, sedges):
     return okeys, ocov, ofw, obw, n
 
 
-def count_sorted_cuda(keys, edges, valid):
-    """kmers.count_sorted with the run-aggregation on the kernel for
-    CUDA tensors: the torch.sort stays outside the kernel."""
-    return count_runs_cuda(*K.sort_records(keys, edges, valid))
+def sort_records_cuda(skeys, sedges, k: int):
+    """The records (biased int64 keys, each a canonical k-mer key or
+    SENTINEL, and uint8 edge bytes, P each) in key order, each edge
+    byte beside its key, equal keys in input order (see
+    kmers.sort_keys_edges for the contract).  CUDA tensors: the
+    sort_records kernel, a radix sort of the low 2k key bits.  With no
+    record the outputs are empty and nothing launches."""
+    if not 1 <= k <= 32:
+        raise ValueError(f"sort_records: k = {k} outside 1..32")
+    if not _on_cuda("sort_records", skeys, sedges):
+        return K.sort_keys_edges(skeys, sedges)
+    from ._build import library
+
+    lib = library()
+    p = skeys.shape[0]
+    _check("sort_records skeys", skeys, torch.int64, (p,))
+    _check("sort_records sedges", sedges, torch.uint8, (p,))
+    dev = skeys.device
+    okeys = torch.empty(p, dtype=torch.int64, device=dev)
+    oedges = torch.empty(p, dtype=torch.uint8, device=dev)
+    if p == 0:  # nothing to sort: no launch, so no count
+        return okeys, oedges
+    tkeys = torch.empty_like(okeys)
+    tedges = torch.empty_like(oedges)
+    # the look-back status of every tile's digits, the histograms, the
+    # tile counters
+    scratch = torch.empty(-(-p // lib.kq_sort_tile()) * 256 + 8 * 256 + 8,
+                          dtype=torch.int64, device=dev)
+    _launch("sort_records", lib.kq_sort_records, skeys.data_ptr(),
+            sedges.data_ptr(), p, k,
+            *_ptrs(okeys, oedges, tkeys, tedges, scratch))
+    LAUNCHES["sort"] += 1
+    return okeys, oedges
+
+
+def count_chunk_cuda(codes, k: int):
+    """One chunk of codes counted into a sorted unique table, as
+    kmers.count_sorted(*kmer_positions(codes, k)) gives it: the
+    extraction's count form, the sort and count_runs, each a kernel on
+    CUDA tensors and its plain version on CPU tensors.  Returns (keys,
+    cov, fw, bw, n) of P = N - k + 1 rows, a SENTINEL tail after n; with
+    no window, empty rows and n = 0, and nothing launches."""
+    skeys, sedges = extract_cuda(codes, k, "count")
+    if skeys.shape[0] == 0:
+        keys, cov, fw, bw = K._empty_rows(0, codes.device)
+        return keys, cov, fw, bw, torch.zeros((), dtype=torch.int64,
+                                              device=codes.device)
+    return count_runs_cuda(*sort_records_cuda(skeys, sedges, k))
 
 
 def merge_sorted_cuda(keys_a, cov_a, fw_a, bw_a, keys_b, cov_b, fw_b, bw_b):
@@ -267,29 +316,31 @@ def probe_sorted_cuda(tkeys, tcov, tfw, tbw, qkeys, index=None):
 
 # the forms of extract_cuda, in the kernel's numbering, with their plain
 # versions
-EXTRACT_FORMS = ("records", "qv", "track")
+EXTRACT_FORMS = ("records", "qv", "track", "count")
 
 
 def plain_extract(form: str):
     """The plain version of an extraction form."""
     return {"records": K.kmer_positions, "qv": V._extract_ctx_qv,
-            "track": V._extract_ctx}[form]
+            "track": V._extract_ctx, "count": K.count_records}[form]
 
 
 def _by_form(form: str, keys, isfw, valid, byte):
     """The outputs of `form` in its plain version's order (byte: the
-    edge bits of records, the ctx of qv and track)."""
+    edge bits of records and count, the ctx of qv and track)."""
     return {"records": (keys, isfw, byte, valid), "qv": (keys, byte),
-            "track": (keys, isfw, valid, byte)}[form]
+            "track": (keys, isfw, valid, byte), "count": (keys, byte)}[form]
 
 
 def extract_cuda(codes, k: int, form: str = "records"):
     """Canonical k-mer extraction of a chunk of codes (uint8 [N], 0-3
-    bases, BAD elsewhere) in one of three forms, each the output of its
+    bases, BAD elsewhere) in one of four forms, each the output of its
     plain version over P = N - k + 1 windows:
       records - (keys, isfw, edges, valid), kmers.kmer_positions;
       qv      - (keys, ctx), validate._extract_ctx_qv;
-      track   - (keys, isfw, valid, ctx), validate._extract_ctx.
+      track   - (keys, isfw, valid, ctx), validate._extract_ctx;
+      count   - (keys, edges) with SENTINEL and 0 where invalid, the
+                records the count step sorts, kmers.count_records.
     CUDA tensors: the kmer_extract kernel.  With no window (P <= 0) the
     outputs are empty, on either device, and nothing launches."""
     if form not in EXTRACT_FORMS:
@@ -313,7 +364,7 @@ def extract_cuda(codes, k: int, form: str = "records"):
     keys = torch.empty(p, dtype=torch.int64, device=dev)
     byte = torch.empty(p, dtype=torch.uint8, device=dev)
     isfw = valid = None
-    if form != "qv":
+    if form in ("records", "track"):
         isfw = torch.empty(p, dtype=torch.bool, device=dev)
         valid = torch.empty(p, dtype=torch.bool, device=dev)
     _launch("extract", library().kq_extract, codes.data_ptr(), n, k,

@@ -1,7 +1,9 @@
 """Canonical k-mer extraction, counting and merging in plain PyTorch.
 
-Counterpart of kreeq_tpu/ops/kmers.py.  `count_sorted`, `merge_sorted`
-and `probe_sorted` here are the plain versions of the CUDA kernels in
+Counterpart of kreeq_tpu/ops/kmers.py.  `kmer_positions` and
+`count_records`, `sort_keys_edges`, `count_runs`, `merge_sorted` and
+`probe_sorted` here are the plain versions of the CUDA kernels in
+csrc/kmer_extract.cu (its records and count forms), csrc/sort_records.cu,
 csrc/count_runs.cu, csrc/merge_sorted.cu and csrc/probe_sorted.cu;
 ops/kernels.py dispatches between each kernel and its plain version by
 the device of the tensors.  `pack_reads` is host numpy, unchanged.
@@ -65,14 +67,29 @@ def kmer_positions(codes: torch.Tensor, k: int):
     return keys, isfw, edges, valid
 
 
+def count_records(codes: torch.Tensor, k: int):
+    """The records the count step sorts (plain version of the
+    extraction's count form): kmer_positions' keys with SENTINEL where
+    the window is invalid, and its edge bits with 0 there."""
+    keys, _isfw, edges, valid = kmer_positions(codes, k)
+    return torch.where(valid, keys, SENTINEL), torch.where(valid, edges, 0)
+
+
+def sort_keys_edges(skeys, sedges):
+    """Plain version of the sort_records kernel: the records in key
+    order, each edge byte beside its key, equal keys in input order (a
+    stable sort, so the output is unique).  Run totals do not depend on
+    the order of equal keys, so count_runs' output is that of any
+    sort."""
+    skeys, order = torch.sort(skeys, stable=True)
+    return skeys, sedges[order]
+
+
 def sort_records(keys, edges, valid):
     """Mask invalid records to (SENTINEL, 0) and sort by key, carrying
-    the edge bits.  The sort order of equal keys does not matter: run
-    totals are order-independent."""
-    skeys = torch.where(valid, keys, SENTINEL)
-    skeys, order = torch.sort(skeys)
-    sedges = torch.where(valid, edges, 0)[order]
-    return skeys, sedges
+    the edge bits (sort_keys_edges)."""
+    return sort_keys_edges(torch.where(valid, keys, SENTINEL),
+                           torch.where(valid, edges, 0))
 
 
 def _empty_rows(p: int, device):

@@ -141,16 +141,17 @@ def sharded_count(codes: torch.Tensor, k: int, group):
     codes: this rank's packed chunk, uint8 on the compute device (an
     empty tensor for a rank without one: every rank of the group must
     call).  Its valid records go to their owners; the records this
-    rank receives are sorted and run-aggregated by count_runs_cuda (B1
-    on the card).  Returns (keys, cov, fw, bw, n) as count_runs does:
-    the sub-table of the keys this rank owns, with a SENTINEL tail."""
-    from ..ops.kernels import count_runs_cuda, extract_cuda
+    rank receives are sorted by sort_records_cuda and run-aggregated by
+    count_runs_cuda (the sort kernel and B1 on the card).  Returns
+    (keys, cov, fw, bw, n) as count_runs does: the sub-table of the keys
+    this rank owns, with a SENTINEL tail."""
+    from ..ops.kernels import (count_runs_cuda, extract_cuda,
+                               sort_records_cuda)
 
     # a chunk shorter than k (an empty one included) has no record
     keys, _isfw, edges, valid = extract_cuda(codes, k)
     rkeys, (redges,), _route = route(keys[valid], (edges[valid],), group)
-    skeys, order = torch.sort(rkeys)
-    return count_runs_cuda(skeys, redges[order])
+    return count_runs_cuda(*sort_records_cuda(rkeys, redges, k))
 
 
 def sharded_probe(table, index, codes: torch.Tensor, k: int, group,

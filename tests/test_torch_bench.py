@@ -172,8 +172,11 @@ def test_result_lines_schema():
                                                      / st["kernel_ms"])
     for name in ("probe_qv", "probe_track"):
         assert stages[name]["sector_floor_ms"] > 0
-    assert set(stages["count"]["parts"]) == {"kmer_positions",
-                                             "kmer_positions_plain", "sort"}
+    assert set(stages["count"]["parts"]) == {"extract", "extract_plain",
+                                             "sort", "sort_plain",
+                                             "torch_sort"}
+    assert 0 < stages["count"]["sort_bound_ms"] \
+        < stages["count"]["sort_passes_ms"]
     for name in ("probe_qv", "probe_track"):
         assert set(stages[name]["parts"]) == {"extract", "extract_plain"}
     for name in ("count", "probe_qv", "probe_track"):
@@ -183,7 +186,7 @@ def test_result_lines_schema():
         == stages["count"]["records"] // 2
     assert set(extra["launches"]) == {"count", "merge", "probe_qv",
                                       "probe_select", "probe_sorted",
-                                      "extract"}
+                                      "extract", "sort"}
     assert "incomplete" not in extra
 
 
@@ -277,6 +280,25 @@ def test_bounds_from_row_counts():
     assert bounds.real_rows(ka) == 3
     assert bounds.merge_bound_ms(ka, kb) == bounds.merge_rows_bound_ms(7, 4)
     assert bounds.count_bound_ms(ka) == bounds.count_rows_bound_ms(5, 3)
+
+
+def test_count_step_bounds():
+    """PERF.md's bounds of the count step's front half at 3.35 TB/s on
+    bench.py's chunk (N = 2^23, k = 31, P = 8,388,578): the extraction's
+    count form 0.025 ms and records form 0.030 ms; the sort's bound, 18 B
+    a record, 0.045 ms, below the least traffic of its passes with 8-bit
+    digits, 0.381 ms at k = 31 (8 passes) and 0.290 ms at k = 21 (6)."""
+    from kreeq_tpu_torch.ops import bounds
+
+    n, p = 1 << 23, 8_388_578
+    assert round(bounds.extract_bound_ms(n, 31, "count"), 3) == 0.025
+    assert round(bounds.extract_bound_ms(n, 31, "records"), 3) == 0.030
+    assert bounds.sort_bound_ms(p) == bounds.bound_ms(18 * p)
+    assert round(bounds.sort_bound_ms(p), 3) == 0.045
+    assert round(bounds.sort_passes_ms(p, 31), 3) == 0.381
+    assert round(bounds.sort_passes_ms(p, 21), 3) == 0.290
+    assert [bounds.sort_passes(k) for k in (1, 4, 5, 21, 31, 32)] \
+        == [1, 1, 2, 6, 8, 8]
 
 
 def test_oracle_build_is_cached():

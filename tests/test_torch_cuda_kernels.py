@@ -15,10 +15,15 @@ owners and routing on the card against the CPU, a 1-rank NCCL
 build against the plain build, the flagship step
 (entry.entry) on the card against its run on the CPU, and the bench's
 four stages (kreeq_tpu_torch/bench.py) at bench.py's shapes; the
-extraction (kmer_extract) in each of its three forms on the CPU
+extraction (kmer_extract) in each of its four forms on the CPU
 tests' cases (tests/test_torch_extract.py), at every k from 1 to 32, with
 P on and around its tile seams, codes that start off a 16-byte
-boundary, and P = 8,388,578.  Needs a
+boundary, and P = 8,388,578; the sort (sort_records) at P = 0, 1, a
+tile and one either side, and 8,388,608, at every k from 1 to 32, on
+all-SENTINEL records, one key 8,388,608 times (its payload must stay in
+input order), keys that differ only in their top digit and keys of
+both signs at k = 32; and the count step of one chunk
+(count_chunk_cuda) against the CPU path.  Needs a
 CUDA device (the `gpu` marker); run on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m gpu
@@ -142,16 +147,17 @@ def test_count_ragged_input(cuda, p):
 
 @pytest.mark.parametrize("k,nbases", [(21, 4), (32, 4), (32, 2)])
 def test_count_sorted_random_chunks(cuda, k, nbases):
+    """A chunk's count step on the card (count_chunk_cuda: the three
+    kernels) against count_sorted's plain version on the card."""
     from kreeq_tpu_torch.ops import kmers as K
-    from kreeq_tpu_torch.ops.kernels import count_sorted_cuda
+    from kreeq_tpu_torch.ops.kernels import count_chunk_cuda
 
     rng = np.random.default_rng(k)
     codes = rng.integers(0, nbases, 300_000).astype(np.uint8)
     codes[rng.random(codes.shape[0]) < 0.01] = 4
-    keys, _isfw, edges, valid = K.kmer_positions(
-        torch.from_numpy(codes).to(cuda), k)
-    _same(count_sorted_cuda(keys, edges, valid),
-          K.count_sorted(keys, edges, valid))
+    codes = torch.from_numpy(codes).to(cuda)
+    keys, _isfw, edges, valid = K.kmer_positions(codes, k)
+    _same(count_chunk_cuda(codes, k), K.count_sorted(keys, edges, valid))
 
 
 def _table(rng, n, device, shared=(), top=None):
@@ -862,12 +868,12 @@ def test_bench_stages_exact_at_bench_shapes(cuda):
 # the extraction (kmer_extract)
 
 
-def _extract_both(codes, k, forms=("records", "qv", "track")):
+def _extract_both(codes, k):
     """Each form of the kernel exactly against its plain version, both
     on the card; one launch a form."""
     from kreeq_tpu_torch.ops import kernels
 
-    for form in forms:
+    for form in kernels.EXTRACT_FORMS:
         before = kernels.LAUNCHES["extract"]
         got = kernels.extract_cuda(codes, k, form)
         assert kernels.LAUNCHES["extract"] == before + 1
@@ -933,8 +939,169 @@ def test_extract_no_window_launches_nothing(cuda):
     from kreeq_tpu_torch.ops import kernels
 
     before = kernels.LAUNCHES["extract"]
-    for form in ("records", "qv", "track"):
+    for form in kernels.EXTRACT_FORMS:
         out = kernels.extract_cuda(torch.zeros(20, dtype=torch.uint8,
                                                device=cuda), 21, form)
         assert all(x.shape == (0,) and x.is_cuda for x in out)
     assert kernels.LAUNCHES["extract"] == before
+
+
+# ---------------------------------------------------------------------------
+# the sort (sort_records) and the count step of a chunk (count_chunk_cuda)
+
+
+def _sort_both(keys, edges, k):
+    """The sort kernel exactly against its plain version (a stable
+    torch.sort and the edge gather), both on the card; one launch, none
+    without a record."""
+    from kreeq_tpu_torch.ops import kernels
+    from kreeq_tpu_torch.ops import kmers as K
+
+    before = kernels.LAUNCHES["sort"]
+    got = kernels.sort_records_cuda(keys, edges, k)
+    assert kernels.LAUNCHES["sort"] == before + (keys.shape[0] > 0)
+    _same(got, K.sort_keys_edges(keys, edges))
+    return got
+
+
+def _canonical(rng, p, k, cuda, sentinels=0.05):
+    """p random canonical k-mer keys (the lesser of a random packed k-mer
+    and its reverse complement), biased, a share of them SENTINEL, and p
+    random edge bytes, on the card."""
+    from kreeq_tpu_torch.constants import SENTINEL, keys_from_u64
+
+    u = rng.integers(0, np.iinfo(np.uint64).max, p, dtype=np.uint64,
+                     endpoint=True)
+    if k < 32:
+        u &= np.uint64((1 << (2 * k)) - 1)
+    rc = np.zeros_like(u)
+    for i in range(k):
+        base = (u >> np.uint64(2 * i)) & np.uint64(3)
+        rc |= (np.uint64(3) - base) << np.uint64(2 * (k - 1 - i))
+    keys = torch.from_numpy(keys_from_u64(np.minimum(u, rc)))
+    keys[torch.from_numpy(rng.random(p) < sentinels)] = SENTINEL
+    edges = torch.from_numpy(rng.integers(0, 256, p).astype(np.uint8))
+    return keys.to(cuda), edges.to(cuda)
+
+
+def _sort_tile():
+    from kreeq_tpu_torch.ops._build import library
+
+    return library().kq_sort_tile()
+
+
+def test_sort_sizes(cuda):
+    """P = 0, 1, a tile and one either side, three tiles and one, and
+    8,388,608, at k = 21 and 31, SENTINELs mixed in."""
+    tile = _sort_tile()
+    rng = np.random.default_rng(160)
+    for k in (21, 31):
+        for p in (0, 1, 2, tile - 1, tile, tile + 1, 3 * tile + 1,
+                  1 << 23):
+            _sort_both(*_canonical(rng, p, k, cuda), k)
+
+
+@pytest.mark.parametrize("k", range(1, 33))
+def test_sort_every_k(cuda, k):
+    """Every pass count: a chunk's records as the count form gives them
+    (BAD runs give SENTINELs; small k gives long runs of equal keys),
+    then random canonical keys."""
+    from kreeq_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(2000 + k)
+    codes = rng.integers(0, 4, 200_003).astype(np.uint8)
+    for start in rng.integers(0, codes.shape[0], 40):
+        codes[start:start + rng.integers(1, 60)] = 4
+    recs = kernels.extract_cuda(torch.from_numpy(codes).to(cuda), k, "count")
+    _sort_both(*recs, k)
+    _sort_both(*_canonical(rng, 100_000, k, cuda), k)
+
+
+def test_sort_all_sentinel(cuda):
+    from kreeq_tpu_torch.constants import SENTINEL
+
+    for p in (1, 5000, 300_000):
+        keys = torch.full((p,), SENTINEL, dtype=torch.int64, device=cuda)
+        edges = torch.arange(p, device=cuda).to(torch.uint8)
+        for k in (1, 21, 32):
+            got = _sort_both(keys, edges, k)
+            assert torch.equal(got[1], edges)
+
+
+def test_sort_one_key_repeated(cuda):
+    """8,388,608 records of one key: every tile's and every pass's digit
+    is the same, and stability keeps the payload in input order."""
+    from kreeq_tpu_torch.constants import KEY_BIAS
+
+    p = 1 << 23
+    keys = torch.full((p,), KEY_BIAS + 0x2B5A3C1D, dtype=torch.int64,
+                      device=cuda)
+    edges = (torch.arange(p, device=cuda) * 7 % 251).to(torch.uint8)
+    for k in (21, 31):
+        got = _sort_both(keys, edges, k)
+        assert torch.equal(got[1], edges)
+
+
+@pytest.mark.parametrize("k", [4, 21, 31, 32])
+def test_sort_top_digit_only(cuda, k):
+    """Keys equal in every digit but the top one (below 4^k and never
+    all ones, as a canonical key), in random order, with SENTINELs: only
+    the last pass orders them."""
+    from kreeq_tpu_torch.constants import SENTINEL, keys_from_u64
+
+    rng = np.random.default_rng(k)
+    passes = -(-2 * k // 8)
+    shift = 8 * (passes - 1)
+    values = 1 << (2 * k - shift)  # the top digit's values below 4^k
+    p = 3 * _sort_tile() + 77
+    low = np.uint64(0x5A5A5A5A5A5A5A5A & ((1 << shift) - 1))
+    u = (rng.integers(0, values - 1, p).astype(np.uint64)
+         << np.uint64(shift)) | low
+    keys = torch.from_numpy(keys_from_u64(u))
+    keys[torch.from_numpy(rng.random(p) < 0.1)] = SENTINEL
+    edges = torch.from_numpy(rng.integers(0, 256, p).astype(np.uint8))
+    _sort_both(keys.to(cuda), edges.to(cuda), k)
+
+
+def test_sort_sign_flip_at_k32(cuda):
+    """k = 32: unbiased keys over all 64 bits, so biased keys of both
+    signs (the top digit holds the bias bit), and SENTINELs."""
+    rng = np.random.default_rng(32)
+    keys, edges = _canonical(rng, 1 << 20, 32, cuda)
+    assert bool((keys < 0).any()) and bool((keys > 0).any())
+    _sort_both(keys, edges, 32)
+
+
+def test_sort_refuses_bad_inputs(cuda):
+    from kreeq_tpu_torch.ops import kernels
+
+    keys = torch.zeros(10, dtype=torch.int64, device=cuda)
+    edges = torch.zeros(10, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.sort_records_cuda(keys.to(torch.int32), edges, 21)
+    with pytest.raises(ValueError):
+        kernels.sort_records_cuda(keys, edges[:9], 21)
+    with pytest.raises(ValueError):
+        kernels.sort_records_cuda(keys, edges, 33)
+
+
+@pytest.mark.parametrize("k", [21, 31])
+def test_count_chunk_equals_cpu(cuda, k):
+    """count_chunk_cuda on the card (extraction, sort and B1, one launch
+    each) equals the CPU path on one chunk of 2^22 codes with BAD
+    runs."""
+    from kreeq_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, 1 << 22).astype(np.uint8)
+    for start in rng.integers(0, codes.shape[0], 200):
+        codes[start:start + rng.integers(1, 200)] = 4
+    before = dict(kernels.LAUNCHES)
+    got = kernels.count_chunk_cuda(torch.from_numpy(codes).to(cuda), k)
+    for key in ("extract", "sort", "count"):
+        assert kernels.LAUNCHES[key] == before[key] + 1
+    _same(got, kernels.count_chunk_cuda(torch.from_numpy(codes), k))
+    empty = kernels.count_chunk_cuda(torch.zeros(k - 1, dtype=torch.uint8,
+                                                 device=cuda), k)
+    assert all(x.is_cuda for x in empty) and int(empty[4]) == 0
+    assert kernels.LAUNCHES["count"] == before["count"] + 1

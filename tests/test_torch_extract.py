@@ -1,6 +1,9 @@
-"""PyTorch port, the extraction (ops/kernels.extract_cuda and its three
+"""PyTorch port, the extraction (ops/kernels.extract_cuda and its four
 plain versions) against the JAX package on the same numpy inputs:
   records - ops/kmers.kmer_positions vs the JAX kmer_positions;
+  count   - ops/kmers.count_records vs the JAX kmer_positions with the
+            JAX count_sorted's masking (SENTINEL keys, 0 edges where
+            invalid);
   qv      - ops/validate._extract_ctx_qv vs the JAX _extract_ctx_qv;
   track   - ops/validate._extract_ctx vs the JAX _extract_ctx, whose
             keys the port sets to SENTINEL where the window is invalid
@@ -20,7 +23,7 @@ torch.set_num_threads(1)
 KS = [1, 3, 11, 21, 31, 32]
 CASES = ["bad_runs", "bad_ends", "n_eq_k", "n_eq_k_plus_1", "all_bad",
          "last_window_valid"]
-FORMS = ["records", "qv", "track"]
+FORMS = ["records", "qv", "track", "count"]
 
 
 def _codes(case: str, k: int) -> np.ndarray:
@@ -63,6 +66,11 @@ def _jax(form: str, codes: np.ndarray, k: int):
     c = jnp.asarray(codes)
     if form == "records":
         return tuple(np.asarray(x) for x in kmer_positions(c, k))
+    if form == "count":
+        keys, _isfw, edges, valid = (np.asarray(x) for x in
+                                     kmer_positions(c, k))
+        return (np.where(valid, keys, np.uint64(0xFFFFFFFFFFFFFFFF)),
+                np.where(valid, edges, 0))
     if form == "qv":
         return tuple(np.asarray(x) for x in _extract_ctx_qv(c, k))
     keys, isfw, valid, ctx = (np.asarray(x) for x in _extract_ctx(c, k))
@@ -108,7 +116,8 @@ def test_wrapper_dtypes_and_shapes(form):
     codes = torch.from_numpy(_codes("bad_runs", 21))
     want = {"records": (torch.int64, torch.bool, torch.uint8, torch.bool),
             "qv": (torch.int64, torch.uint8),
-            "track": (torch.int64, torch.bool, torch.bool, torch.uint8)}
+            "track": (torch.int64, torch.bool, torch.bool, torch.uint8),
+            "count": (torch.int64, torch.uint8)}
     out = extract_cuda(codes, 21, form)
     assert tuple(x.dtype for x in out) == want[form]
     assert all(x.shape == (codes.shape[0] - 20,) for x in out)
@@ -142,8 +151,9 @@ def test_wrapper_refuses_unknown_form_and_device():
 
 
 def test_main_path_extracts_through_the_wrapper(monkeypatch, tmp_path):
-    """The build, the QV sums and the track classification call the
-    wrapper (which launches the kernel on the card), in their forms."""
+    """The build (through count_chunk_cuda), the QV sums and the track
+    classification call the wrapper (which launches the kernel on the
+    card), in their forms."""
     from kreeq_tpu_torch.core.table import KmerTable
     from kreeq_tpu_torch.ops import kernels
     from kreeq_tpu_torch.ops.validate import (validate_positions,
@@ -163,7 +173,7 @@ def test_main_path_extracts_through_the_wrapper(monkeypatch, tmp_path):
     reads.write_text("".join(f">r{i}\n{genome[s:s + 150]}\n" for i, s in
                              enumerate(rng.integers(0, 2850, 200))))
     table = KmerTable.from_reads([str(reads)], 21, "cpu", chunk=1 << 12)
-    assert forms and set(forms) == {"records"}
+    assert forms and set(forms) == {"count"}
     tab = (table.keys, table.cov, table.fw, table.bw)
     asm = torch.from_numpy(_codes("bad_runs", 21))
     validate_qv_sums(*tab, asm, 21, 0, 0, asm.shape[0] - 20)

@@ -39,20 +39,19 @@ def test_kmer_positions_match_jax(k):
 
 @pytest.mark.parametrize("k,nbases", [(21, 4), (31, 4), (32, 4), (32, 2)])
 def test_count_sorted_matches_jax(k, nbases):
-    """count_sorted with BAD bases; nbases=2 gives low-entropy input with
+    """The count step (count_chunk_cuda: count form, stable sort,
+    count_runs) with BAD bases; nbases=2 gives low-entropy input with
     long runs of equal keys."""
     import jax.numpy as jnp
 
     from kreeq_tpu.ops.kmers import count_sorted as jax_count
     from kreeq_tpu.ops.kmers import kmer_positions as jax_positions
-    from kreeq_tpu_torch.ops.kernels import count_sorted_cuda
-    from kreeq_tpu_torch.ops.kmers import kmer_positions
+    from kreeq_tpu_torch.ops.kernels import count_chunk_cuda
 
     codes = _codes(100 + k, 3000, 0.02, nbases)
     ref = jax_count(*(jax_positions(jnp.asarray(codes), k)[i]
                       for i in (0, 2, 3)))
-    keys, _isfw, edges, valid = kmer_positions(torch.from_numpy(codes), k)
-    got = count_sorted_cuda(keys, edges, valid)
+    got = count_chunk_cuda(torch.from_numpy(codes), k)
     assert int(ref[4]) == int(got[4])
     assert np.array_equal(np.asarray(ref[0]), _port_u64(got[0]))
     for name, x, y in zip(("cov", "fw", "bw"), ref[1:4], got[1:4]):
@@ -67,7 +66,7 @@ def test_count_sorted_long_run_matches_jax(run):
 
     from kreeq_tpu.ops.kmers import count_sorted as jax_count
     from kreeq_tpu_torch.constants import keys_from_u64
-    from kreeq_tpu_torch.ops.kernels import count_sorted_cuda
+    from kreeq_tpu_torch.ops.kmers import count_sorted
 
     rng = np.random.default_rng(run)
     keys = np.concatenate([rng.integers(0, 1 << 42, 700, dtype=np.uint64),
@@ -77,7 +76,7 @@ def test_count_sorted_long_run_matches_jax(run):
     edges = rng.integers(0, 256, keys.shape[0]).astype(np.uint8)
     valid = rng.random(keys.shape[0]) > 0.05
     ref = jax_count(jnp.asarray(keys), jnp.asarray(edges), jnp.asarray(valid))
-    got = count_sorted_cuda(torch.from_numpy(keys_from_u64(keys)),
+    got = count_sorted(torch.from_numpy(keys_from_u64(keys)),
                             torch.from_numpy(edges), torch.from_numpy(valid))
     assert int(ref[4]) == int(got[4])
     assert int(got[1].max()) > 2 * 1024
