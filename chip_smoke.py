@@ -83,9 +83,10 @@ non-zero and never prints the final line):
      (equal GFA2), (f) KmerTable.merge of the DB with itself on the
      host (equal to the in-core merge), (g) a checkpointed build of 4
      parts killed after 2 and resumed (equal to (a)'s table); per step
-     the wall, launches, peak device memory, each window's upload (ms,
-     GB/s), directory and B4/B5 ms (CUDA events), host fold and
-     classify s, each host merge's rows and s, each checkpoint write.
+     the wall, launches, peak device memory, the windows probed, the
+     window uploads' and directory builds' calls and host s (the
+     kq.ooc.* spans), B4/B5 calls and queries a window, each host
+     merge's rows and s, each checkpoint write.
  11. several ranks, on phase 4's reads cut into 4 FASTQ files of
      unequal size, phase 4's assembly and phase 6's DB: (a) `validate
      -r r0.fq r1.fq r2.fq r3.fq -f asm.fa` as 2 ranks sharing the card
@@ -1345,38 +1346,43 @@ def env(**values):
 
 
 def ooc_report(device) -> dict:
-    """What the out-of-core path recorded since the last call
-    (core/table.OOC_STATS, core/build_ckpt.CKPT_STATS), in ms, GB/s and
-    s per window and per host merge; clears the records."""
-    import torch
-
+    """What the out-of-core path recorded since the last call: the
+    windowed probes and host merges (core/table.OOC_STATS), the
+    checkpoint writes (core/build_ckpt.CKPT_STATS), and the window
+    uploads and directory builds of the CLI jobs run since (the spans
+    kq.ooc.upload and kq.ooc.index of utils/log.jobs: calls and host
+    seconds); clears the records."""
     from kreeq_tpu_torch.core.build_ckpt import CKPT_STATS
     from kreeq_tpu_torch.core.table import OOC_STATS
-    from kreeq_tpu_torch.device import elapsed_ms
+    from kreeq_tpu_torch.utils import log as klog
 
-    torch.cuda.synchronize(device)
     st = OOC_STATS
     probes = {}
-    for name, w, q, a, b in st["probe"]:
-        ms, n, queries = probes.get((name, w), (0.0, 0, 0))
-        probes[name, w] = (ms + elapsed_ms(a, b), n + 1, queries + q)
+    for name, w, q in st["probe"]:
+        n, queries = probes.get((name, w), (0, 0))
+        probes[name, w] = (n + 1, queries + q)
+    jobs = list(klog.jobs)
+
+    def spans(name):
+        recs = [j["spans"][name] for j in jobs if name in j["spans"]]
+        return {"calls": sum(r["calls"] for r in recs),
+                "s": sum(r["total_s"] for r in recs)}
+
     out = {
-        "uploads": [{"window": w, "rows": rows, "ms": elapsed_ms(a, b),
-                     "GB_per_s": nbytes / elapsed_ms(a, b) / 1e6}
-                    for w, rows, nbytes, a, b in st["upload"]],
-        "index_ms": [elapsed_ms(a, b) for _w, a, b in st["index"]],
+        "windows": sorted({w for _name, w, _q in st["probe"]}),
+        "uploads": spans("kq.ooc.upload"),
+        "index": spans("kq.ooc.index"),
         "probes": [{"kernel": name, "window": w, "calls": n,
-                    "queries": q, "ms": ms}
-                   for (name, w), (ms, n, q) in sorted(probes.items())],
+                    "queries": q}
+                   for (name, w), (n, q) in sorted(probes.items())],
         "host_merges": [{"rows_a": a, "rows_b": b, "rows_out": m, "s": t}
                         for a, b, m, t in st["host_merge"]],
-        "pin": [{"bytes": b, "s": t} for b, t in st["pin"]],
-        "fold_s": list(st["fold"]), "classify_s": list(st["classify"]),
         "ckpt_writes": [{"op": op, "name": name, "rows": rows, "s": t}
                         for op, name, rows, t in CKPT_STATS["write"]],
     }
     for v in st.values():
         v.clear()
+    klog.jobs.clear()
     CKPT_STATS["write"] = []
     return out
 
@@ -1387,8 +1393,9 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
     KREEQ_TPU_MAX_TABLE_ROWS = 10^7 (3 windows of about 8.25M rows) and
     KREEQ_TPU_HOST_MERGE_ROWS = 2 * 10^7 (the JAX soak's ratio of the
     two caps).  Each step's output must equal the in-core one; its
-    launches, per-window times, host merges and checkpoint writes go to
-    the JSON line.  Returns (launches summed over the steps, report)."""
+    launches, windowed probes, upload and directory spans, host merges
+    and checkpoint writes go to the JSON line.  Returns (launches
+    summed over the steps, report)."""
     import torch
 
     from kreeq_tpu_torch.core import build_ckpt
@@ -1413,20 +1420,18 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
         for key, n in launches.items():
             total[key] += n
         merges = rec["host_merges"]
-        ups = rec["uploads"] or [{"ms": 0.0, "GB_per_s": 0.0}]
+        ups = rec["uploads"]
         log(f"    ({name}) wall {wall:.2f} s, peak device memory "
-            f"{peak:.2f} GiB; launches {launches}; "
-            f"{len(rec['uploads'])} window uploads of "
-            f"{min(u['ms'] for u in ups):.2f}-{max(u['ms'] for u in ups):.2f}"
-            f" ms ({min(u['GB_per_s'] for u in ups):.2f}-"
-            f"{max(u['GB_per_s'] for u in ups):.2f} GB/s); "
+            f"{peak:.2f} GiB; launches {launches}; windows probed "
+            f"{rec['windows']}; {ups['calls']} window uploads, "
+            f"{ups['s'] * 1e3:.2f} host ms in all; "
             f"{len(merges)} host merges, {sum(m['s'] for m in merges):.2f}"
             " s in all"
             + "".join(f"; {k} {v}" for k, v in extra.items()))
         return rec
 
     def windows_of(rec):
-        return sorted({u["window"] for u in rec["uploads"]})
+        return rec["windows"]
 
     built = []
     plain_from_reads = KmerTable.from_reads.__func__
@@ -1467,7 +1472,8 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
             ("extract", "probe_select"), "out-of-core tracks", device)
         rec = step("b", wall, lb, peak, load_s=ph["load k-mer DB"],
                    validate_s=ph["validate"])
-        if len(rec["pin"]) != 1 or windows_of(rec) != list(range(nwin)):
+        # only a host-resident table is probed in windows
+        if windows_of(rec) != list(range(nwin)):
             raise AssertionError("(b): the DB did not load host-resident")
         same_output(bkwig, os.path.join(tmp, "asm.bkwig"))
 

@@ -215,7 +215,8 @@ def run(argv: List[str]) -> int:
         with (log.trace(ui.trace_dir, device)
               if ui.trace_dir and _writes_output()
               else contextlib.nullcontext()):
-            _run_mode(ui, device, multihost.world())
+            with log.job():
+                _run_mode(ui, device, multihost.world())
             log.print_profile()
     finally:
         sys.stdout = stdout

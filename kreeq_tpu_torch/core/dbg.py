@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import math
 import sys
-import time
 from collections import deque
 from dataclasses import dataclass
 from typing import List, Optional
@@ -25,7 +24,6 @@ import torch
 
 from ..config import UserInput
 from ..constants import BAD
-from ..device import stamp
 from ..io.sequence import Genome
 from ..utils.fmt import cpp_double
 from .table import OOC_STATS, KmerTable, u32_bits, widen_u32
@@ -167,7 +165,6 @@ class DBG:
             def classify(si, a, buf, lead, hi):
                 return self._classify_acc(accs[si], a, buf, lead, hi)
 
-        t0 = time.perf_counter()
         # int64 totals on the device: genome-scale counts pass 2^31
         acc = torch.zeros(2, dtype=torch.int64, device=device)
         self.tracks = []
@@ -204,8 +201,6 @@ class DBG:
             pending.popleft()()
         self.tot_missing, self.tot_edge_missing = (int(x) for x in
                                                    acc.tolist())
-        if ranges is not None:
-            OOC_STATS["classify"].append(time.perf_counter() - t0)
         self._print_qv(out, k)
 
     def _probe_windowed(self, ranges):
@@ -231,7 +226,6 @@ class DBG:
                        for _ in range(3)))
                 for si, seg in enumerate(self.genome.segments)
                 if len(seg) >= k}
-        fold_s = 0.0
         for w in range(len(ranges)):
             for si, (af, ac, ar, al) in accs.items():
                 codes = self.genome.segments[si].codes
@@ -240,13 +234,10 @@ class DBG:
                         torch.from_numpy(buf).to(dev), k, "track")
                     tab = table.device_arrays(w)
                     index = table.window_index(w)
-                    t0 = stamp(dev)
                     sel = probe_select_cuda(*tab, keys, ctx, index)
                     OOC_STATS["probe"].append(("probe_select", w,
-                                               keys.shape[0], t0,
-                                               stamp(dev)))
+                                               keys.shape[0]))
                     del tab, index  # the next window uploads into room
-                    t1 = time.perf_counter()
                     sl = slice(lead, lead + (b - a))
                     found = sel[0][sl].cpu().numpy()
                     vals = torch.stack([u32_bits(x[sl]) for x in sel[1:]])
@@ -254,8 +245,6 @@ class DBG:
                     af[a:b] |= found
                     for dst, src in zip((ac, ar, al), vals):
                         np.copyto(dst[a:b], src, where=found)
-                    fold_s += time.perf_counter() - t1
-        OOC_STATS["fold"].append(fold_s)
         return accs
 
     def _classify_acc(self, sel_host, a: int, buf, lead: int, hi: int):

@@ -45,7 +45,7 @@ import torch
 import torch.distributed as dist
 
 from ..constants import LARGEST_U32, keys_from_u64, keys_to_u64
-from ..device import stamp
+from ..utils import log
 
 MAP_COUNT = 128  # on-disk partition count, pinned by .kreeq/.index files
 
@@ -59,19 +59,12 @@ _DIR_BYTES = 8 * ((1 << 22) + 1)
 # fallback
 _CPU_MEMORY = 16 << 30
 
-# what the out-of-core path did, until the caller clears the lists:
-#   pin        - (bytes, seconds) per host-resident table copied into
-#                pinned memory
-#   upload     - (window, rows, host bytes, start, end) per window upload
-#   index      - (window, start, end) per window directory build
-#   probe      - (kernel, window, queries, start, end) per windowed probe
+# what the out-of-core path did, until the caller clears the lists
+# (the window uploads and directory builds are the spans kq.ooc.upload
+# and kq.ooc.index, utils/log.py):
+#   probe      - (kernel, window, queries) per windowed probe
 #   host_merge - (rows a, rows b, rows out, seconds) per host merge
-#   fold       - host seconds of each windowed validate's accumulate pass
-#   classify   - host seconds of each windowed validate's classify pass
-# start and end are device.stamp()s: CUDA events on the card (read them
-# after a synchronize), host clock readings elsewhere
-OOC_STATS = {"pin": [], "upload": [], "index": [], "probe": [],
-             "host_merge": [], "fold": [], "classify": []}
+OOC_STATS = {"probe": [], "host_merge": []}
 
 
 def max_device_rows(device: torch.device) -> int:
@@ -213,8 +206,6 @@ def parallel_host_merge(a, b):
 
 
 def _timed_host_merge(a, b):
-    from ..utils import log
-
     t0 = time.perf_counter()
     out = parallel_host_merge(a, b)
     dt = time.perf_counter() - t0
@@ -319,16 +310,21 @@ class TreeMerger:
         return part
 
     def merge(self, stored, fresh):
+        """The span kq.build.merge (counters build.host_merges,
+        build.device_merges)."""
         from ..ops.kernels import merge_sorted_cuda
 
-        if int(stored[4]) + fresh[0].shape[0] > _host_merge_threshold(
-                self.device):
-            out = _timed_host_merge(_to_host(self._trim(stored)),
-                                    _to_host(self._trim(fresh)))
-            return (*out, len(out[0]))
-        a = _to_device(self._trim(stored), self.device)
-        b = _to_device(fresh, self.device)
-        return merge_sorted_cuda(*a, *b)
+        with log.span("kq.build.merge"):
+            if int(stored[4]) + fresh[0].shape[0] > _host_merge_threshold(
+                    self.device):
+                log.count("build.host_merges")
+                out = _timed_host_merge(_to_host(self._trim(stored)),
+                                        _to_host(self._trim(fresh)))
+                return (*out, len(out[0]))
+            log.count("build.device_merges")
+            a = _to_device(self._trim(stored), self.device)
+            b = _to_device(fresh, self.device)
+            return merge_sorted_cuda(*a, *b)
 
     def push(self, part):
         # retrim the stored levels first: untrimmed merge outputs would
@@ -500,16 +496,10 @@ class KmerTable:
         `device` is a card, so a window's upload is one DMA."""
         device = torch.device(device)
         pin = device.type == "cuda"
-        t0 = time.perf_counter()
         arrs = [_pinned(keys, pin)] + [
             _pinned(np.ascontiguousarray(x, np.uint32).view(np.int32), pin)
             for x in (cov, fw, bw)]
-        if pin:
-            OOC_STATS["pin"].append((sum(a.nbytes for a in arrs),
-                                     time.perf_counter() - t0))
         table = cls(k, *arrs, compute=device)
-        from ..utils import log
-
         log.verbose(f"table of {len(table)} rows held on the host in "
                     f"{len(table.window_ranges())} windows")
         return table
@@ -564,11 +554,14 @@ class KmerTable:
         the same reads.  With several ranks, the build is sharded
         (ShardedCounter) when the reads pass 8 chunks of bytes or
         KREEQ_TPU_FORCE_SHARDED=1 (the JAX package's rule for its
-        devices), and every rank gets the whole table."""
+        devices), and every rank gets the whole table.
+
+        Spans: kq.build.upload (a chunk's copy to `device`),
+        kq.build.count (its count step), kq.build.merge (TreeMerger);
+        counter build.rows (the table's)."""
         from ..io.fastx import iter_reads
         from ..ops import kmers as K
         from ..ops.kernels import count_chunk_cuda
-        from ..utils import log
 
         if chunk is None:
             chunk = int(os.environ.get("KREEQ_TPU_CHUNK", 1 << 23))
@@ -600,18 +593,20 @@ class KmerTable:
             for buf in K.pack_reads(read_iter(), k, chunk):
                 sc.add(buf)
             acc = sc.drain()
-            if acc is None:
-                return cls.empty(k, device)
-            return cls.placed(k, acc, device)
-
-        tm = TreeMerger(device)
-        for i, buf in enumerate(K.pack_reads(read_iter(), k, chunk)):
-            tm.push(count_chunk_cuda(torch.from_numpy(buf).to(device), k))
-            if log.verbose_flag:
-                log.verbose(f"counted chunk {i}")
-        acc = tm.finalize()
+        else:
+            tm = TreeMerger(device)
+            for i, buf in enumerate(K.pack_reads(read_iter(), k, chunk)):
+                with log.span("kq.build.upload"):
+                    codes = torch.from_numpy(buf).to(device)
+                with log.span("kq.build.count"):
+                    part = count_chunk_cuda(codes, k)
+                tm.push(part)
+                if log.verbose_flag:
+                    log.verbose(f"counted chunk {i}")
+            acc = tm.finalize()
         if acc is None:
             return cls.empty(k, device)
+        log.count("build.rows", len(acc[0]))
         return cls.placed(k, acc, device)
 
     # -- windows -----------------------------------------------------------
@@ -638,14 +633,12 @@ class KmerTable:
         self._win = self._win_bucket = None
         lo, hi = self.window_ranges()[window]
         dev = self.device
-        t0 = stamp(dev)
-        host = (self.keys[lo:hi], self.cov[lo:hi], self.fw[lo:hi],
-                self.bw[lo:hi])
-        arrays = (host[0].to(dev, non_blocking=True),
-                  *(widen_u32(x.to(dev, non_blocking=True)) for x in host[1:]))
-        OOC_STATS["upload"].append((window, hi - lo,
-                                    sum(x.nbytes for x in host), t0,
-                                    stamp(dev)))
+        with log.span("kq.ooc.upload"):
+            host = (self.keys[lo:hi], self.cov[lo:hi], self.fw[lo:hi],
+                    self.bw[lo:hi])
+            arrays = (host[0].to(dev, non_blocking=True),
+                      *(widen_u32(x.to(dev, non_blocking=True))
+                        for x in host[1:]))
         self._win = (window, arrays)
         return arrays
 
@@ -665,9 +658,8 @@ class KmerTable:
             return self._bucket
         tkeys = self.device_arrays(window)[0]
         if self._win_bucket is None or self._win_bucket[0] != window:
-            t0 = stamp(self.device)
-            index = bucket_index(tkeys, self.k)
-            OOC_STATS["index"].append((window, t0, stamp(self.device)))
+            with log.span("kq.ooc.index"):
+                index = bucket_index(tkeys, self.k)
             self._win_bucket = (window, index)
         return self._win_bucket[1]
 
@@ -685,10 +677,8 @@ class KmerTable:
 
         tab = self.device_arrays(window)
         index = self.window_index(window)
-        t0 = stamp(self.device)
         out = probe_sorted_cuda(*tab, qkeys, index)
-        OOC_STATS["probe"].append(("probe_sorted", window, qkeys.shape[0],
-                                   t0, stamp(self.device)))
+        OOC_STATS["probe"].append(("probe_sorted", window, qkeys.shape[0]))
         return out
 
     # -- probing -----------------------------------------------------------
@@ -739,8 +729,6 @@ class KmerTable:
         if self._host is None and self.on_host:
             self._host = self.host_arrays()
         elif self._host is None:
-            from ..utils import log
-
             with log.phase("table host copy"):
                 self._host = self.host_arrays()
         keys, cov, fw, bw = self._host

@@ -47,6 +47,7 @@ import torch
 
 from ..constants import keys_from_u64
 from ..core.table import MAP_COUNT, KmerTable, max_device_rows
+from ..utils import log
 
 PHMAP_VERSION = 0xFFFFFFFFFFFFFFF5
 SUBMAP_COUNT = 256
@@ -89,9 +90,12 @@ def read_index(db_path: str) -> Tuple[int, int]:
 
 def _read_map_file(path: str, wide: bool):
     """(keys u64[n], vals u32[n,9]) from one archive file (native C++
-    parser when available, Python fallback otherwise)."""
+    parser when available, Python fallback otherwise); counters db.maps
+    and db.bytes."""
     with open(path, "rb") as fh:
         data = fh.read()
+    log.count("db.maps")
+    log.count("db.bytes", len(data))
     from . import native_enabled
 
     if native_enabled():
@@ -113,47 +117,66 @@ def read_kreeq(db_path: str, device) -> KmerTable:
     """Load a `.kreeq` DB into a KmerTable probed on `device` (u8 +
     high-copy merged).  The rows are sorted by key on the device, or,
     above max_device_rows(device) rows, on the host, and the table then
-    stays there (KmerTable.host_form)."""
-    k, map_count = read_index(db_path)
-    all_keys = []
-    all_vals = []
-    tombstones = []
-    for m in range(map_count):
-        path = os.path.join(db_path, f".map.{m}.bin")
-        if not os.path.exists(path):
-            continue
-        keys, vals = _read_map_file(path, wide=False)
-        tomb = vals[:, 8] == 255  # value lives in the hc map
-        tombstones.append(keys[tomb])
-        all_keys.append(keys[~tomb])
-        all_vals.append(vals[~tomb])
-    hc_path = os.path.join(db_path, ".map.hc.bin")
-    hc_keys = np.zeros(0, np.uint64)
-    if os.path.exists(hc_path):
-        hc_keys, hc_vals = _read_map_file(hc_path, wide=True)
-        all_keys.append(hc_keys)
-        all_vals.append(hc_vals)
-    keys = np.concatenate(all_keys) if all_keys else np.zeros(0, np.uint64)
-    vals = (np.concatenate(all_vals) if all_vals
-            else np.zeros((0, 9), np.uint32))
-    missing = np.setdiff1d(np.concatenate(tombstones)
-                           if tombstones else np.zeros(0, np.uint64),
-                           hc_keys)
-    if missing.size:
-        raise ValueError(
-            f"int32 map missing 255 value from int8 map: key {missing[0]}")
-    # keys are unique, so any sort order of them is the table's order
-    if keys.shape[0] > max_device_rows(device):
-        keys, order = torch.sort(torch.from_numpy(keys_from_u64(keys)))
-        vals = vals[order.numpy()]
-        return KmerTable.host_form(k, keys.numpy(), vals[:, 8],
-                                   vals[:, 0:4], vals[:, 4:8], device)
-    # counters cross as int32 bit patterns (u32 values) and widen there
-    keys, order = torch.sort(torch.from_numpy(keys_from_u64(keys)).to(device))
-    vals = torch.from_numpy(vals.view(np.int32)).to(device)[order]
-    vals = vals.to(torch.int64) & 0xFFFFFFFF
-    return KmerTable(k, keys, vals[:, 8].contiguous(),
-                     vals[:, 0:4].contiguous(), vals[:, 4:8].contiguous())
+    stays there (KmerTable.host_form).
+
+    Spans: kq.db.parse (the index, and reading and parsing every map
+    file), kq.db.assemble (the concatenations, the tombstone check and
+    the key conversion; counter db.rows), kq.db.upload (the device
+    copies, the sort, the gather and the widening, or the host form's
+    sort and pinning)."""
+    with log.span("kq.db.parse"):
+        k, map_count = read_index(db_path)
+        maps = []
+        for m in range(map_count):
+            path = os.path.join(db_path, f".map.{m}.bin")
+            if os.path.exists(path):
+                maps.append(_read_map_file(path, wide=False))
+        hc_path = os.path.join(db_path, ".map.hc.bin")
+        hc = (_read_map_file(hc_path, wide=True) if os.path.exists(hc_path)
+              else None)
+    with log.span("kq.db.assemble"):
+        all_keys = []
+        all_vals = []
+        tombstones = []
+        maps.reverse()
+        while maps:  # each map's arrays are freed as it is split
+            keys, vals = maps.pop()
+            tomb = vals[:, 8] == 255  # value lives in the hc map
+            tombstones.append(keys[tomb])
+            all_keys.append(keys[~tomb])
+            all_vals.append(vals[~tomb])
+        hc_keys = np.zeros(0, np.uint64)
+        if hc is not None:
+            hc_keys, hc_vals = hc
+            all_keys.append(hc_keys)
+            all_vals.append(hc_vals)
+        keys = (np.concatenate(all_keys) if all_keys
+                else np.zeros(0, np.uint64))
+        vals = (np.concatenate(all_vals) if all_vals
+                else np.zeros((0, 9), np.uint32))
+        missing = np.setdiff1d(np.concatenate(tombstones)
+                               if tombstones else np.zeros(0, np.uint64),
+                               hc_keys)
+        if missing.size:
+            raise ValueError(
+                f"int32 map missing 255 value from int8 map: key "
+                f"{missing[0]}")
+        keys = keys_from_u64(keys)
+        log.count("db.rows", keys.shape[0])
+    with log.span("kq.db.upload"):
+        # keys are unique, so any sort order of them is the table's order
+        if keys.shape[0] > max_device_rows(device):
+            keys, order = torch.sort(torch.from_numpy(keys))
+            vals = vals[order.numpy()]
+            return KmerTable.host_form(k, keys.numpy(), vals[:, 8],
+                                       vals[:, 0:4], vals[:, 4:8], device)
+        # counters cross as int32 bit patterns (u32 values) and widen
+        # there
+        keys, order = torch.sort(torch.from_numpy(keys).to(device))
+        vals = torch.from_numpy(vals.view(np.int32)).to(device)[order]
+        vals = vals.to(torch.int64) & 0xFFFFFFFF
+        return KmerTable(k, keys, vals[:, 8].contiguous(),
+                         vals[:, 0:4].contiguous(), vals[:, 4:8].contiguous())
 
 
 _MIX_MULT = 0xde5fb9d2630458e9  # phmap_mix<8> multiplier

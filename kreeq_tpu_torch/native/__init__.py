@@ -99,26 +99,36 @@ def get_lib() -> Optional[ctypes.CDLL]:
 
 
 def parse_fastx(path: str) -> Optional[List[np.ndarray]]:
-    """Parse FASTA/FASTQ(.gz) into per-sequence uint8 code arrays."""
+    """Parse FASTA/FASTQ(.gz) into per-sequence uint8 code arrays: the
+    parse and the copies out of the library are the span
+    `kq.ingest.parse` (counters `ingest.files`, `ingest.reads`,
+    `ingest.bases`), the list of per-read views `kq.ingest.views`."""
+    from ..utils import log
+
     lib = get_lib()
     if lib is None:
         return None
-    h = lib.kn_parse_fastx(path.encode())
-    if not h:
-        return None
-    try:
-        n_seqs = lib.kn_num_seqs(h)
-        n_codes = lib.kn_num_codes(h)
-        if n_seqs == 0:
-            return []
-        codes = np.ctypeslib.as_array(lib.kn_codes(h),
-                                      shape=(n_codes,)).copy()
-        offsets = np.ctypeslib.as_array(lib.kn_offsets(h),
-                                        shape=(n_seqs,)).copy()
+    with log.span("kq.ingest.parse"):
+        h = lib.kn_parse_fastx(path.encode())
+        if not h:
+            return None
+        try:
+            n_seqs = lib.kn_num_seqs(h)
+            n_codes = lib.kn_num_codes(h)
+            log.count("ingest.files")
+            log.count("ingest.reads", n_seqs)
+            log.count("ingest.bases", n_codes)
+            if n_seqs == 0:
+                return []
+            codes = np.ctypeslib.as_array(lib.kn_codes(h),
+                                          shape=(n_codes,)).copy()
+            offsets = np.ctypeslib.as_array(lib.kn_offsets(h),
+                                            shape=(n_seqs,)).copy()
+        finally:
+            lib.kn_free(h)
         bounds = np.append(offsets, np.uint64(n_codes)).astype(np.int64)
+    with log.span("kq.ingest.views"):
         return [codes[bounds[i]:bounds[i + 1]] for i in range(n_seqs)]
-    finally:
-        lib.kn_free(h)
 
 
 def phmap_place(hashes: np.ndarray, cap: int) -> Optional[np.ndarray]:

@@ -217,8 +217,26 @@ def pack_reads(seqs, k: int, chunk: int):
     the reference processes whole read batches for the same reason,
     reference: src/graph-builder.cpp:75-91).  Reads longer than the
     chunk size are emitted as dedicated right-sized chunks (padded to a
-    power of two).
+    power of two).  Each stretch from the generator's start or resume
+    to its next chunk is the span `kq.ingest.pack` (counters
+    `build.chunks`, `build.chunk_bytes`); the pull of `seqs`, which
+    parses the reads, runs inside it.
     """
+    from ..utils import log
+
+    chunks = _pack_reads(seqs, chunk)
+    while True:
+        with log.span("kq.ingest.pack"):
+            buf = next(chunks, None)
+            if buf is not None:
+                log.count("build.chunks")
+                log.count("build.chunk_bytes", buf.nbytes)
+        if buf is None:
+            return
+        yield buf
+
+
+def _pack_reads(seqs, chunk: int):
     from ..constants import seq_to_codes
 
     buf = np.full(chunk, BAD, dtype=np.uint8)
