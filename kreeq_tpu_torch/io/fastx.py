@@ -9,8 +9,9 @@ from __future__ import annotations
 
 import gzip
 import io
-from typing import Iterator, Tuple
+from typing import Iterator, Tuple, Union
 
+from .. import native
 from .sequence import Genome
 
 
@@ -73,21 +74,22 @@ def iter_fastq(stream) -> Iterator[Tuple[str, str, str, str]]:
         yield header, comment, seq, qual
 
 
-def iter_reads(path: str) -> Iterator[str]:
-    """Yield read sequences from a FASTA or FASTQ (possibly .gz) file.
+def iter_reads(path: str) -> Iterator[Union[str, native.ReadBatch]]:
+    """Yield the reads of a FASTA or FASTQ (possibly .gz) file.
 
-    Uses the native C++ parser when available (yields uint8 code
-    arrays directly, skipping string materialization); downstream
-    consumers accept either form.
+    The native C++ parser, when available, yields the whole file as one
+    native.ReadBatch (every read's codes followed by one BAD, and the
+    reads' ends), from which ops/kmers.pack_reads cuts chunks with one
+    copy each; iterating the batch gives per-read code arrays.  The
+    pure-Python fallback (no compiler or zlib, or "-") yields one string
+    a read.
     """
     from . import native_enabled
 
     if native_enabled() and path != "-":
-        from ..native import parse_fastx
-
-        seqs = parse_fastx(path)
-        if seqs is not None:
-            yield from seqs
+        batch = native.parse_fastx(path)
+        if batch is not None:
+            yield batch
             return
     with open_text(path) as stream:
         first = stream.read(1)

@@ -1,10 +1,10 @@
 """ctypes bindings for the native host helpers (builds on first use).
 
-Host code only: the FASTX parser turns FASTA/FASTQ (plain or gzip) into
-per-sequence uint8 code arrays; the phmap helpers parse and place the
-records of `.kreeq` archives.  The shared library is built with g++
-into the package's gitignored `_build/` directory, keyed on a hash of
-the source.  Without a compiler (or zlib) the callers fall back to the
+Host code only: the FASTX parser turns a FASTA/FASTQ file (plain or
+gzip) into one ReadBatch of uint8 codes; the phmap helpers parse and
+place the records of `.kreeq` archives.  The shared library is built
+with g++ into the package's gitignored `_build/` directory, keyed on a
+hash of the source.  Without a compiler (or zlib) the callers fall back to the
 pure-Python code in io/fastx.py and io/kreeqdb.py.
 """
 
@@ -14,7 +14,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -98,11 +98,31 @@ def get_lib() -> Optional[ctypes.CDLL]:
     return _lib
 
 
-def parse_fastx(path: str) -> Optional[List[np.ndarray]]:
-    """Parse FASTA/FASTQ(.gz) into per-sequence uint8 code arrays: the
-    parse and the copies out of the library are the span
-    `kq.ingest.parse` (counters `ingest.files`, `ingest.reads`,
-    `ingest.bases`), the list of per-read views `kq.ingest.views`."""
+class ReadBatch:
+    """The reads of one file in the layout of the device chunks: `sep`
+    holds every read's codes followed by one BAD, and `ends[i]` (int64)
+    is the end of read i in `sep`, its separator included.
+    ops/kmers.pack_reads cuts chunks from it by read boundaries;
+    iterating it gives per-read views without the separators."""
+
+    __slots__ = ("sep", "ends")
+
+    def __init__(self, sep: np.ndarray, ends: np.ndarray):
+        self.sep = sep
+        self.ends = ends
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        start = 0
+        for end in self.ends.tolist():
+            yield self.sep[start:end - 1]
+            start = end
+
+
+def parse_fastx(path: str) -> Optional[ReadBatch]:
+    """Parse FASTA/FASTQ(.gz) into a ReadBatch: the parse and the copies
+    out of the library are the span `kq.ingest.parse` (counters
+    `ingest.files`, `ingest.reads`, `ingest.bases`: bases only, not the
+    separators), the batch's read index (`ends`) `kq.ingest.views`."""
     from ..utils import log
 
     lib = get_lib()
@@ -117,18 +137,20 @@ def parse_fastx(path: str) -> Optional[List[np.ndarray]]:
             n_codes = lib.kn_num_codes(h)
             log.count("ingest.files")
             log.count("ingest.reads", n_seqs)
-            log.count("ingest.bases", n_codes)
+            log.count("ingest.bases", n_codes - n_seqs)
             if n_seqs == 0:
-                return []
-            codes = np.ctypeslib.as_array(lib.kn_codes(h),
-                                          shape=(n_codes,)).copy()
-            offsets = np.ctypeslib.as_array(lib.kn_offsets(h),
-                                            shape=(n_seqs,)).copy()
+                return ReadBatch(np.zeros(0, np.uint8), np.zeros(0, np.int64))
+            sep = np.ctypeslib.as_array(lib.kn_codes(h),
+                                        shape=(n_codes,)).copy()
+            starts = np.ctypeslib.as_array(lib.kn_offsets(h),
+                                           shape=(n_seqs,)).copy()
         finally:
             lib.kn_free(h)
-        bounds = np.append(offsets, np.uint64(n_codes)).astype(np.int64)
     with log.span("kq.ingest.views"):
-        return [codes[bounds[i]:bounds[i + 1]] for i in range(n_seqs)]
+        ends = np.empty(n_seqs, np.int64)
+        ends[:-1] = starts[1:]
+        ends[-1] = n_codes
+        return ReadBatch(sep, ends)
 
 
 def phmap_place(hashes: np.ndarray, cap: int) -> Optional[np.ndarray]:

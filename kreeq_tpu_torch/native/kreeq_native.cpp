@@ -1,7 +1,8 @@
 // Native host helpers, exposed with a plain C ABI for ctypes:
-// - sequence ingest: FASTA/FASTQ (plain or gzip) -> per-sequence 2-bit
-//   code arrays (A=0 C=1 G=2 T=3, anything else BAD=4), ready for
-//   packing into device chunks.  The reference's ingest path is C++ too
+// - sequence ingest: FASTA/FASTQ (plain or gzip) -> one buffer of 2-bit
+//   codes (A=0 C=1 G=2 T=3, anything else BAD=4), every sequence
+//   followed by one BAD: the layout of the device chunks, which are cut
+//   from it by sequence boundaries.  The reference's ingest path is C++ too
 //   (gfalibs StreamObj + kcount, reference: src/input.cpp:188-308);
 // - phmap binary-archive parsing and SwissTable slot placement for
 //   `.kreeq` databases (layout in kreeq_tpu_torch/io/kreeqdb.py).
@@ -15,16 +16,28 @@
 
 namespace {
 
+const uint8_t kBad = 4;
+
 struct Parsed {
-    std::vector<uint8_t> codes;     // concatenated per-sequence codes
+    std::vector<uint8_t> codes;     // each sequence's codes, then one BAD
     std::vector<uint64_t> offsets;  // start offset of each sequence
+
+    // Start a sequence, closing the previous one with its separator.
+    void open() {
+        if (!offsets.empty()) codes.push_back(kBad);
+        offsets.push_back(codes.size());
+    }
+    // Close the last sequence (an empty one keeps its separator too).
+    void close() {
+        if (!offsets.empty()) codes.push_back(kBad);
+    }
 };
 
 uint8_t code_table[256];
 
 struct TableInit {
     TableInit() {
-        memset(code_table, 4, sizeof(code_table));
+        memset(code_table, kBad, sizeof(code_table));
         const char *bases = "ACGT";
         for (int i = 0; i < 4; ++i) {
             code_table[(unsigned char)bases[i]] = i;
@@ -38,7 +51,8 @@ struct TableInit {
 extern "C" {
 
 // Parse a FASTA/FASTQ file (gzip-transparent).  Returns an opaque
-// handle; query sizes/pointers with the accessors below.
+// handle; query sizes/pointers with the accessors below.  kn_num_codes
+// counts the separators: one a sequence.
 void *kn_parse_fastx(const char *path) {
     gzFile fh = gzopen(path, "rb");
     if (!fh) return nullptr;
@@ -66,7 +80,7 @@ void *kn_parse_fastx(const char *path) {
             --len;
         if (fastq) {
             if (state == 0) {
-                if (line_start) out->offsets.push_back(out->codes.size());
+                if (line_start) out->open();
             } else if (state == 1) {
                 size_t base = out->codes.size();
                 out->codes.resize(base + len);
@@ -77,7 +91,7 @@ void *kn_parse_fastx(const char *path) {
             if (eol) state = (state + 1) & 3;
         } else {
             if (len > 0 && line[0] == '>' && state != 2 && line_start) {
-                out->offsets.push_back(out->codes.size());
+                out->open();
                 state = eol ? 1 : 2;  // 2 = skipping long header
             } else if (state == 2) {
                 if (eol) state = 1;  // rest of a long header line
@@ -91,6 +105,7 @@ void *kn_parse_fastx(const char *path) {
         }
         line_start = eol;
     }
+    out->close();
     gzclose(fh);
     return out;
 }

@@ -6,7 +6,9 @@ Counterpart of kreeq_tpu/ops/kmers.py.  `kmer_positions` and
 csrc/kmer_extract.cu (its records and count forms), csrc/sort_records.cu,
 csrc/count_runs.cu, csrc/merge_sorted.cu and csrc/probe_sorted.cu;
 ops/kernels.py dispatches between each kernel and its plain version by
-the device of the tensors.  `pack_reads` is host numpy, unchanged.
+the device of the tensors.  `pack_reads` is the host's packing of reads
+into the chunks those kernels count: numpy, with one copy a chunk from
+a parsed batch.
 
 Keys follow the dtype rule in constants.py: int64 holding u64 ^ 2^63,
 SENTINEL = INT64_MAX.  The arithmetic below works on the raw u64 bit
@@ -211,48 +213,84 @@ def combine_probe(f1, c1, fw1, bw1, f2, c2, fw2, bw2):
 
 
 def pack_reads(seqs, k: int, chunk: int):
-    """Pack read code arrays into BAD-separated uint8 chunks.
+    """Pack reads into BAD-separated uint8 chunks of `chunk` bytes.
 
     Reads are never split across chunks (edge context must stay intact;
     the reference processes whole read batches for the same reason,
     reference: src/graph-builder.cpp:75-91).  Reads longer than the
     chunk size are emitted as dedicated right-sized chunks (padded to a
-    power of two).  Each stretch from the generator's start or resume
-    to its next chunk is the span `kq.ingest.pack` (counters
-    `build.chunks`, `build.chunk_bytes`); the pull of `seqs`, which
-    parses the reads, runs inside it.
+    power of two); the final partial chunk is trimmed to the smallest
+    power of two >= 64 that holds it.
+
+    An item of `seqs` is a read (a str or a uint8 code array) or a
+    native.ReadBatch, whose reads are cut into chunks with one copy a
+    chunk; the stream is byte for byte the one its reads would give
+    one by one, and a chunk may hold the end of one item and the start
+    of the next.  Each stretch from the generator's start or resume to
+    its next chunk is the span `kq.ingest.pack` (counters
+    `build.chunks`, `build.chunk_bytes`, and the reads packed from
+    batches `ingest.batch_reads` and one by one `ingest.single_reads`);
+    the pull of `seqs`, which parses the reads, runs inside it.
     """
     from ..utils import log
 
-    chunks = _pack_reads(seqs, chunk)
+    packed = [0, 0]  # reads packed from batches, one by one
+    chunks = _pack_reads(seqs, chunk, packed)
     while True:
         with log.span("kq.ingest.pack"):
             buf = next(chunks, None)
             if buf is not None:
                 log.count("build.chunks")
                 log.count("build.chunk_bytes", buf.nbytes)
+            log.count("ingest.batch_reads", packed[0])
+            log.count("ingest.single_reads", packed[1])
+            packed[:] = 0, 0
         if buf is None:
             return
         yield buf
 
 
-def _pack_reads(seqs, chunk: int):
+def _pack_reads(seqs, chunk: int, packed):
     from ..constants import seq_to_codes
+    from ..native import ReadBatch
 
     buf = np.full(chunk, BAD, dtype=np.uint8)
     pos = 0
     for seq in seqs:
+        if isinstance(seq, ReadBatch):
+            sep, ends = seq.sep, seq.ends
+            i, n = 0, len(ends)
+            while i < n:
+                start = int(ends[i - 1]) if i else 0
+                # the reads from i on that fit in the open chunk
+                j = int(np.searchsorted(ends, start + chunk - pos,
+                                        side="right"))
+                if j > i:
+                    end = int(ends[j - 1])
+                    buf[pos:pos + end - start] = sep[start:end]
+                    pos += end - start
+                    packed[0] += j - i
+                    i = j
+                    continue
+                if pos > 0:  # read i does not fit in what is left
+                    yield buf
+                    buf = np.full(chunk, BAD, dtype=np.uint8)
+                    pos = 0
+                    continue
+                # nor in a whole chunk
+                packed[0] += 1
+                yield _own_chunk(sep[start:int(ends[i]) - 1])
+                i += 1
+            continue
         codes = seq_to_codes(seq) if isinstance(seq, str) else seq
         m = len(codes)
+        packed[1] += 1
         if m > chunk - 1:
             if pos > 0:
                 yield buf
                 buf = np.full(chunk, BAD, dtype=np.uint8)
                 pos = 0
-            big = 1 << int(np.ceil(np.log2(m + 1)))
-            bigbuf = np.full(big, BAD, dtype=np.uint8)
-            bigbuf[:m] = codes
-            yield bigbuf
+            yield _own_chunk(codes)
             continue
         if pos + m + 1 > chunk:
             yield buf
@@ -266,3 +304,12 @@ def _pack_reads(seqs, chunk: int):
         while size < pos:
             size *= 2
         yield buf[:size]
+
+
+def _own_chunk(codes):
+    """A chunk of its own for a read longer than the chunk size, padded
+    with BAD to the next power of two above its length."""
+    m = len(codes)
+    big = np.full(1 << int(np.ceil(np.log2(m + 1))), BAD, dtype=np.uint8)
+    big[:m] = codes
+    return big
