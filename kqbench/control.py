@@ -22,7 +22,7 @@ import sys
 import tempfile
 import time
 
-from . import compare, gen, spec
+from . import compare, gen, kinds, spec
 from .reference import outputs, table_of
 from .reference.kmers import U8_MAX
 
@@ -41,8 +41,8 @@ def readings(config: dict, traffic: dict, seed: int, top: int = U8_MAX):
     for parts, files, _facts in runs:
         got = compare.stdout_checks("".join(parts.values()), runs[0][0])
         for name, kind in traffic["files"].items():
-            check, fn = compare.FILE_CHECKS[kind]
-            got[check] = fn(files[name], runs[0][1][name])
+            mod = kinds.find(kind)
+            got[mod.CHECK] = mod.values_off(files[name], runs[0][1][name])
         for n, v in got.items():
             out.setdefault(n, []).append(v)
     return {n: tuple(v) for n, v in out.items()}
@@ -57,14 +57,15 @@ def main(argv=None) -> int:
     cell = spec.cell(bench, args.workload)
     _path, config = spec.config(bench, cell["config"])
     traffic = spec.traffic(cell["traffic"])
+    limits = compare.limits(traffic)
     for seed in args.seeds:
         t0 = time.perf_counter()
         r = readings(config, traffic, seed)
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "reference": {n: v[0] for n, v in r.items()},
                           "control": {n: v[1] for n, v in r.items()},
-                          "limits": {n: compare.LIMITS[n] for n in r},
-                          "control_fails": any(v[1] > compare.LIMITS[n]
+                          "limits": {n: limits[n] for n in r},
+                          "control_fails": any(v[1] > limits[n]
                                                for n, v in r.items()),
                           "seconds": time.perf_counter() - t0}),
               flush=True)

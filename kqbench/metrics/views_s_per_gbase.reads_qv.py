@@ -1,5 +1,5 @@
-"""Host self seconds of the program's `kq.ingest.views` span (the list
-of per-read views into the parsed codes, native.parse_fastx) per 10^9
+"""Host self seconds of the program's `kq.ingest.views` span (the read
+index of a file's batch, its `ends` array, native.parse_fastx) per 10^9
 read bases, the bases the program counted as it parsed them (counter
 `ingest.bases`), over the window's jobs."""
 

@@ -9,14 +9,14 @@ whose counters saturate at 8 bits.
 
 from __future__ import annotations
 
+from .. import kinds
 from .kmers import count_table, read_blocks, separated
-from .validate import bkwig_bytes, qv_text, score, summary_text
+from .validate import qv_text, score, summary_text
 
 # bases of reads counted in one block of the table's build
 BLOCK_BASES = 1 << 23
 
 STDOUT_PARTS = ("summary", "qv")
-FILE_KINDS = ("bkwig",)
 
 
 def table_of(reads, offsets, k: int, threads=None):
@@ -32,19 +32,19 @@ def outputs(table, records, stdout, files):
     assembly `records` ((name, sequence bytes) each).
 
     stdout: the parts of stdout in order (STDOUT_PARTS); files: {file
-    name: kind} (FILE_KINDS).  Returns ({part: text}, {file name:
-    bytes}, {"table_rows", "rows_found", "asm_windows"})."""
+    name: kind} (kqbench/kinds/).  The assembly is scored once, with
+    the per-base tracks where a kind needs them.  Returns ({part:
+    text}, {file name: bytes}, {"table_rows", "rows_found",
+    "asm_windows"})."""
     for part in stdout:
         if part not in STDOUT_PARTS:
             raise ValueError(f"no reference for the stdout part {part!r}")
-    for kind in files.values():
-        if kind not in FILE_KINDS:
-            raise ValueError(f"no reference for the file kind {kind!r}")
+    mods = {name: kinds.find(kind) for name, kind in files.items()}
     k = table.k
-    sc = score(table, records, tracks="bkwig" in files.values())
+    sc = score(table, records, tracks=any(
+        getattr(m, "TRACKS", False) for m in mods.values()))
     text = {"summary": summary_text(table), "qv": qv_text(sc, k)}
-    out = {name: bkwig_bytes(k, records, sc)
-           for name, kind in files.items() if kind == "bkwig"}
+    out = {name: m.expected(table, records, sc) for name, m in mods.items()}
     facts = {"table_rows": len(table.keys), "rows_found": sc.rows_found,
              "asm_windows": sc.kcount}
     return {p: text[p] for p in stdout}, out, facts

@@ -19,7 +19,6 @@ from __future__ import annotations
 import math
 import os
 import re
-import struct
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import List
@@ -164,21 +163,3 @@ def qv_text(sc: Score, k: int) -> str:
     return ("Missing\tTotal\tQV\tError\tk\tMethod\n"
             + _qv_row(sc.missing, sc.kcount, k, "Merqury")
             + _qv_row(sc.missing + sc.edge_missing, sc.kcount, k, "Kreeq"))
-
-
-def bkwig_bytes(k: int, records, sc: Score) -> bytes:
-    """The binary kwig: k, the path index (per path its name and, per
-    segment, absolute position, length and 1), then 12 bytes (u32 cov,
-    right, left) per segment base."""
-    parts = [struct.pack("<B", k)]
-    paths = paths_of(records)
-    parts.append(struct.pack("<I", len(paths)))
-    for path in paths:
-        name = path.name.encode()
-        parts.append(struct.pack("<H", len(name)) + name)
-        parts.append(struct.pack("<I", len(path.segments)))
-        for pos, seq in path.segments:
-            parts.append(struct.pack("<QQB", pos, len(seq), 1))
-    for trk in sc.tracks:
-        parts.append(trk.astype("<u4").tobytes())
-    return b"".join(parts)

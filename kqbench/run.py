@@ -6,7 +6,8 @@
 from the root of a checkout, on a machine with a CUDA card.  The cell,
 its configuration (kqbench/configs/<config>.json) and its traffic
 (kqbench/traffic/<traffic>.json) are found by name from BENCHMARK.json,
-and each per-layer metric's reader by its name (kqbench/metrics/).
+each per-layer metric's reader by its name (kqbench/metrics/), and
+each output file's check by its kind (kqbench/kinds/).
 
 Set-up, all counted in `setup_s` (from the process's start): torch and
 the program's kernel library (built into the program's own fixed build
@@ -42,7 +43,7 @@ import time
 import traceback
 from dataclasses import dataclass, field
 
-from . import compare, spec
+from . import compare, kinds, spec
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "kreeq_tpu"}
 CACHE = os.path.join(spec.KQBENCH, ".cache")
@@ -135,20 +136,27 @@ def sampled(seed: int) -> set:
 
 
 def _argv(template, values: dict):
-    return [a.format(**values) for a in template]
+    """A job's arguments: each `{role}` the generator's file of that
+    role, `{k}` the configuration's k, `{work}` the scratch directory."""
+    try:
+        return [a.format(**values) for a in template]
+    except KeyError as e:
+        raise ValueError(
+            f"the traffic's argument {e.args[0]!r} names no input role: "
+            f"the generator wrote {', '.join(sorted(values))}") from None
 
 
 def _digest(config_path: str, traffic: dict, seed: int) -> str:
     """Cache key of a reference: the configuration file, the traffic's
-    outputs, the seed, and the sources of the generator and the
-    reference."""
+    outputs, the seed, and the sources of the generator, the reference
+    and the file kinds."""
     h = hashlib.sha256()
     with open(config_path, "rb") as fh:
         h.update(fh.read())
     h.update(json.dumps([traffic["stdout"], traffic["files"], seed],
                         sort_keys=True).encode())
-    for sub in ("gen", "reference"):
-        d = os.path.join(spec.KQBENCH, sub)
+    for d in (os.path.join(spec.KQBENCH, "gen"),
+              os.path.join(spec.KQBENCH, "reference"), *kinds.DIRS):
         for name in sorted(os.listdir(d)):
             if name.endswith(".py"):
                 with open(os.path.join(d, name), "rb") as fh:
@@ -189,26 +197,24 @@ def reference(inputs, config: dict, config_path: str, traffic: dict,
     return parts, files, facts
 
 
-def judge(jobs, parts: dict, files: dict, traffic: dict):
+def judge(jobs, parts: dict, files: dict, traffic: dict, limits: dict):
     """(whether each job failed, the worst reading of each check, one
     line for each of the first failed jobs)."""
-    worst = {f"{p}_fields_off": 0 for p in traffic["stdout"]}
-    for kind in traffic["files"].values():
-        worst[compare.FILE_CHECKS[kind][0]] = 0
+    worst = dict.fromkeys(limits, 0)
     failed, notes = [], []
     for i, job in enumerate(jobs):
         got = compare.stdout_checks(job.stdout, parts)
         for name, kind in traffic["files"].items() if job.judged else ():
-            check, fn = compare.FILE_CHECKS[kind]
+            mod = kinds.find(kind)
             path = job.files.get(name)
             if path is None:
-                got[check] = len(files[name])
+                got[mod.CHECK] = len(files[name])
                 continue
             with open(path, "rb") as fh:
-                got[check] = fn(fh.read(), files[name])
+                got[mod.CHECK] = mod.values_off(fh.read(), files[name])
         for name, v in got.items():
             worst[name] = max(worst[name], v)
-        off = {n: v for n, v in got.items() if v > compare.LIMITS[n]}
+        off = {n: v for n, v in got.items() if v > limits[n]}
         failed.append(job.rc != 0 or bool(off))
         if failed[-1] and len(notes) < 5:
             notes.append(f"job {i}: rc {job.rc}, off {off}; "
@@ -281,6 +287,8 @@ def run_cell(cell: dict, config: dict, config_path: str, traffic: dict,
     from . import trace as tr
     from .spans import COUNT, MERGE, TRACKS, Spans
 
+    # an unknown file kind fails here, before any work
+    limits = compare.limits(traffic)
     device = resolve_device()
     cuda = device.type == "cuda"
     if cuda:
@@ -294,19 +302,18 @@ def run_cell(cell: dict, config: dict, config_path: str, traffic: dict,
     try:
         inputs = gen.make(config, seed, work)
         marks.append(("inputs", process_age()))
-        values = {"reads": inputs.files["reads"], "asm": inputs.files["asm"],
-                  "k": config["k"], "work": work}
-        for argv in traffic["setup"]:
-            job = run_job(_argv(argv, values), work, "", [])
+        values = {**inputs.files, "k": config["k"], "work": work}
+        argv = _argv(traffic["job"], values)
+        for setup in [_argv(a, values) for a in traffic["setup"]]:
+            job = run_job(setup, work, "", [])
             if job.rc != 0:
-                raise RuntimeError(f"set-up job {argv} failed: rc {job.rc}"
+                raise RuntimeError(f"set-up job {setup} failed: rc {job.rc}"
                                    f"\n{job.error}")
         # what set-up wrote reaches the disk now, not in the window
         os.sync()
         wrote = sum(os.path.getsize(os.path.join(d, f))
                     for d, _s, fs in os.walk(work) for f in fs)
         marks.append(("traffic set-up", process_age()))
-        argv = _argv(traffic["job"], values)
         files = list(traffic["files"])
         keep = os.path.join(work, "out")
         os.makedirs(keep)
@@ -350,10 +357,10 @@ def run_cell(cell: dict, config: dict, config_path: str, traffic: dict,
         parts, files_ref, facts = reference(inputs, config, config_path,
                                             traffic, seed, cache)
         # the warm-up job is judged with the window's
-        failed, worst, notes = judge(jobs, parts, files_ref, traffic)
+        failed, worst, notes = judge(jobs, parts, files_ref, traffic, limits)
         attempted = len(jobs) - 1
         correct = (not any(failed) and attempted > 0
-                   and all(v <= compare.LIMITS[n] for n, v in worst.items()))
+                   and all(v <= limits[n] for n, v in worst.items()))
         if trace:
             run = TracedRun(attempted, inputs.sizes, facts, phases, spans,
                             traced, *rows)
@@ -380,12 +387,12 @@ def run_cell(cell: dict, config: dict, config_path: str, traffic: dict,
             device_rec["window_s"] = traced.window_s
             result["breakdown"] = {"device_ops": traced.device_ops(),
                                    "idle_gaps": traced.idle_gaps()}
-        result["checks"] = {n: {"value": v, "limit": compare.LIMITS[n]}
+        result["checks"] = {n: {"value": v, "limit": limits[n]}
                             for n, v in worst.items()}
         lines = notes + diagnostics(marks, wrote, jobs[1:], phases) + [
             "reference: " + ", ".join(f"{n} {v}" for n, v in facts.items()),
         ] + [
-            f"check {n} {v} limit {compare.LIMITS[n]}"
+            f"check {n} {v} limit {limits[n]}"
             for n, v in worst.items()]
         return result, lines
     finally:

@@ -13,6 +13,7 @@ PROBE = """
 import sys
 import kqbench.reference, kqbench.reference.kmers, kqbench.reference.validate
 import kqbench.gen, kqbench.gen.genome_reads, kqbench.compare, kqbench.bounds
+import kqbench.kinds, kqbench.kinds.bkwig
 print(sorted({m.split(".")[0] for m in sys.modules}))
 """
 
