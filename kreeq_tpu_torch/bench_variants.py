@@ -117,7 +117,7 @@ def old_dbg_to_variants(dbg, seg) -> None:
             ref_key = pos_key(c + 1)[0] if c + 1 <= kcount - 1 else None
             ok, paths = search_variants(
                 dbg, skey, rec, is_fw, ref_key, targets_queue,
-                targets_map, cache)
+                targets_map, cache, [0, 0])
             explored_total += ok
             if ok:
                 for p in paths:
