@@ -42,7 +42,7 @@ non-zero and never prints the final line):
      --detect-anomalies; -o x.vcf, x.gfa, x.gfa2, x.gfa.gz and the
      `subgraph` runs (best-first, traversal, --no-collapse
      --no-reference --search-depth 5, -p) on the first 100 kbp, since
-     the host search of every branch point runs twice per output) must
+     the CPU run searches every branch point on the host) must
      be byte-equal, .gz files after decompression;
   6. DB reuse with per-base tracks, end to end on phase 4's inputs:
      `validate -r reads.fq -k 21 -o reads.kreeq`, then `validate -d
@@ -59,10 +59,15 @@ non-zero and never prints the final line):
      (QV rows must equal phase 4's; the generic probe's calls timed
      with CUDA events and summed), then `validate -d reads.kreeq -f
      chr2_1mbp.fa -o asm.vcf` on the first 1,000,000 bases of chr2 (the
-     host search of every branch point bounds its size; the table and
-     the scan window are full size): the VCF must have rows, each REF
+     table and the scan window are full size; the search runs in the
+     variant_search kernel): the VCF must have rows, each REF
      must equal the assembly at its POS, and the generic probe must have
-     launched on both paths;
+     launched on both paths, the variant search on the VCF's; then the
+     variant search kernel on that run's scan window (the DB reloaded,
+     the scan rerun): its records and each search's lookups and cache
+     hits equal to the host search's on the same tensors, its device
+     time beside the host search's and its byte bound (the kernels
+     line's variant_search row);
   9. subgraph mode against phase 6's DB on the same 1,000,000 bases of
      chr2: `subgraph -d reads.kreeq -f chr2_1mbp.fa --traversal-algorithm
      traversal -o sub.gfa2`, then the default best-first `-o sub.gfa`;
@@ -181,7 +186,8 @@ from kreeq_tpu_torch.ops.bounds import (bound_ms, compare, count_bound_ms,
                                         probe_sorted_bound_ms,
                                         rows_floor_ms, sector_floor_ms,
                                         sort_bound_ms, sort_passes,
-                                        sort_passes_ms, touched_rows)
+                                        sort_passes_ms, touched_rows,
+                                        variant_search_bound_ms)
 
 K = 21
 GENOME_MBP = 12.0  # yeast scale
@@ -221,6 +227,11 @@ KERNELS = (
     # the count step's sort: jax.lax.sort in _sort_keys_edges (XLA)
     ("sort_records", "sort", "kreeq_tpu_torch/ops/csrc/sort_records.cu",
      "kreeq_tpu/ops/kmers.py:158", "validate"),
+    # no TPU kernel: the host search of kreeq_tpu/core/variants.py;
+    # timed and checked in phase 8, at the VCF run's window
+    ("variant_search", "variant_search",
+     "kreeq_tpu_torch/ops/csrc/variant_search.cu",
+     "kreeq_tpu/core/variants.py:539", "variants"),
 )
 
 
@@ -884,6 +895,8 @@ def phase_kernels(fq: str, fa: str, device):
         f"exact")
     del pkeys, pidx, pq, pvq, pargs, pvargs
     for name, *_rest in KERNELS:
+        if name not in res:  # variant_search: timed in phase 8
+            continue
         r = res[name]
         floor = (f"; sector floor {r['sector_ms']:.3f} ms"
                  if "sector_ms" in r else "")
@@ -1158,7 +1171,8 @@ def phase_variants(fa, tmp, qv_rows, device):
     seq = head_fasta(fa, cut, "chr2", CUT_VCF)
     vcf = os.path.join(tmp, "asm.vcf")
     _out, l_vcf = path(["kreeq", "validate", "-d", db, "-f", cut, "-o",
-                        vcf], ("extract", "probe_sorted"), "variants")
+                        vcf], ("extract", "probe_sorted", "variant_search"),
+                       "variants")
     stats = dict(variants.SEARCH_STATS)
     with open(vcf) as fh:
         recs = [line.rstrip("\n").split("\t") for line in fh
@@ -1175,10 +1189,105 @@ def phase_variants(fa, tmp, qv_rows, device):
         f"({flagged} positions), QV rows equal phase 4's; VCF of "
         f"{CUT_VCF} bases of chr2: {stats['branch_points']} branch points "
         f"({stats['branch_points'] / (CUT_VCF - K + 1):.2%} of positions), "
-        f"host search {stats['search_s']:.2f} s, {len(recs)} rows ({snvs} "
+        f"search {stats['search_s']:.2f} s, {len(recs)} rows ({snvs} "
         "SNV), "
         "every REF equal to the assembly at its POS")
-    return l_vcf
+    return l_vcf, check_variant_search(db, cut, device)
+
+
+def check_variant_search(db, cut, device):
+    """variant_search at the VCF run's shape: the first scan window of
+    the cut's longest segment (the whole 1 Mbp, one window) against the
+    DB's table, on the scan's own tensors.  Its records and each
+    search's lookups and cache hits must equal the host search's
+    (core/variants._search_from_scan) on the same inputs.  Times the
+    kernel (device time, and CUDA events around the wrapper, whose
+    readback synchronises) and the host search, beside the byte bound
+    of this launch's counts.  Returns the kernels line's record."""
+    import torch
+
+    from kreeq_tpu_torch.config import UserInput
+    from kreeq_tpu_torch.constants import keys_to_u64
+    from kreeq_tpu_torch.core import variants
+    from kreeq_tpu_torch.core.dbg import DBG
+    from kreeq_tpu_torch.io import fastx
+    from kreeq_tpu_torch.io.kreeqdb import read_kreeq
+    from kreeq_tpu_torch.io.sequence import Genome
+    from kreeq_tpu_torch.ops import kernels
+
+    ui = UserInput(in_sequence=cut)
+    table = read_kreeq(db, device)
+    dbg = DBG(ui, table)
+    genome = Genome()
+    fastx.load_genome(cut, genome)
+    dbg.load_genome(genome)
+    seg = max(dbg.genome.segments, key=len)
+    k, span, cutoff = dbg.k, ui.max_span, ui.cov_cutoff
+    kcount = len(seg) - k + 1
+    wb = min(kcount, variants._variants_window_cap())
+    hi = min(kcount, wb + k + span + 1)
+    keys, isfw, covs, fws, bws, rows = variants._window_scan(
+        table, seg.codes, 0, hi, 0, wb, k, cutoff)
+    index = table.bucket_index()
+    args = (table.keys, table.fw, table.bw, keys, isfw, fws, bws, rows, 0,
+            kcount, k, span, cutoff, ui.resolved_kmer_depth())
+    recs, bases, counts = kernels.variant_search_cuda(*args, index)
+    got = variants.PathGroups()
+    got.add(recs.cpu().numpy(), bases.cpu().numpy())
+    counts = counts.cpu().numpy()
+
+    # the host search on the same inputs, each search's counts taken
+    per = []
+    search = variants.search_variants
+
+    def counted(*a):
+        stats = a[-1]
+        before = stats[:2]
+        out = search(*a)
+        per.append((stats[0] - before[0], stats[1] - before[1]))
+        return out
+
+    table.lookup(0)  # the table's host copy, made before the timing
+    want = variants.PathGroups()
+    host_rows = rows.cpu().numpy()
+    host_recs = tuple(a[rows].cpu().numpy() for a in (fws, bws, covs))
+    host_keys = keys_to_u64(keys.cpu().numpy())
+    host_isfw = isfw.cpu().numpy()
+    variants.search_variants = counted
+    try:
+        t0 = time.perf_counter()
+        variants._search_from_scan(dbg, 0, kcount, k, span, {}, want,
+                                   host_keys, host_isfw, host_rows,
+                                   host_recs)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        variants.search_variants = search
+    n = int(rows.shape[0])
+    if list(got) != list(want) or counts.tolist() != [list(c) for c in per]:
+        raise AssertionError(f"variant_search: the kernel's records or "
+                             f"counts differ from the host search's over "
+                             f"{n} searches")
+    lookups, hits = (int(x) for x in counts.sum(0))
+    npaths, nbases = int(recs.shape[0]), int(bases.shape[0])
+    rec = dict(
+        shape=f"searches={n} positions={wb} t={len(table)}",
+        bound_ms=variant_search_bound_ms(n, lookups, npaths, nbases),
+        max_abs_err=0.0,
+        ms=device_ms(lambda: kernels.variant_search_cuda(*args, index)),
+        event_ms=statistics.median(cuda_times(
+            lambda: kernels.variant_search_cuda(*args, index))),
+        plain_ms=plain_ms, searches=n, lookups=lookups, cache_hits=hits,
+        records=npaths)
+    log(f"    variant_search at the VCF run's window ({n} searches, "
+        f"{lookups} lookups, {hits} cache hits, {npaths} records): kernel "
+        f"{rec['ms']:.3f} ms (device), {rec['event_ms']:.3f} ms (CUDA "
+        f"events around the wrapper, readback included); host search "
+        f"{plain_ms:.1f} ms; bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_ms'] / rec['ms']:.1%} of the kernel's time); "
+        "records and each search's counts equal the host search's")
+    del table, dbg, keys, isfw, covs, fws, bws, rows, index, args
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _graph_stats(stdout: str) -> dict:
@@ -2070,6 +2179,8 @@ def phase_sharded(fq, fa, tmp, validate_out, ooc, card, device):
 
 RUNNER_CHUNK = 4096  # bases a read chunk in phase 12's corpus: B2 runs
 KERNEL_KEYS = tuple(key for _n, key, _s, _t, _p in KERNELS)
+# `kreeq warmup` runs no variant search
+WARMUP_KEYS = tuple(key for key in KERNEL_KEYS if key != "variant_search")
 
 
 def run_runner(args, keys=()):
@@ -2217,7 +2328,7 @@ def phase_runner(fq, fa, tmp, validate_out, wall4, seed, device):
         rc = cli_run(["kreeq", "warmup"])
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    check_launches(launches, KERNEL_KEYS, "warmup")
+    check_launches(launches, WARMUP_KEYS, "warmup")
     m = WARMUP_LINE.fullmatch(buf.getvalue().splitlines()[-1])
     if rc != 0 or not m:
         raise AssertionError(f"warmup: rc {rc}, {buf.getvalue()!r}")
@@ -2718,7 +2829,8 @@ def main() -> int:
         launches["tracks"] = phase_db_tracks(fq, fa, tmp, qv_rows, device)
         if args.profile:
             phase_profile(fa, tmp, args.profile, device)
-        launches["variants"] = phase_variants(fa, tmp, qv_rows, device)
+        launches["variants"], res["variant_search"] = phase_variants(
+            fa, tmp, qv_rows, device)
         phase_subgraph(tmp, device)
         ooc_launches, ooc = phase_out_of_core(fq, fa, tmp, validate_out,
                                               card, device)

@@ -16,14 +16,20 @@ exactly:
   * queued nodes keep priority 0 (decreaseKey refuses to raise keys),
     so extraction order follows the Fibonacci-heap mechanics.
 
-Two halves per window of positions.  On the table's device: k-mer
-extraction with per-position sentinels (`_extract_sentinel`), the table
-probe through ops.kernels.probe_sorted_cuda (`KmerTable.probe_device`)
-and the depth-0 candidate scan (`_candidate_scan`), in the port's biased
-int64 keys.  On the host: the window's keys, orientations and the
-counters of the selected branch points come back in one bulk copy, and
-the exact Fibonacci-heap search runs on u64 Python ints, as in the JAX
-package (keys.py; `KmerTable.lookup`).
+Two halves per window of positions.  First the scan, on the table's
+device: k-mer extraction with per-position sentinels
+(`_extract_sentinel`), the table probe through
+ops.kernels.probe_sorted_cuda (`KmerTable.probe_device`) and the
+depth-0 candidate scan (`_candidate_scan`), in the port's biased int64
+keys.  Then the exact Fibonacci-heap search from each branch point the
+scan selected.  Against a device-form table on a card
+(`_device_search`), one launch of ops.kernels.variant_search_cuda runs
+every search of the window, a thread each, and only their path records
+come back (`_search_on_card`).  Otherwise the window's keys,
+orientations and the counters of the branch points come back in one
+bulk copy, and the search runs on u64 Python ints, as in the JAX
+package (keys.py; `KmerTable.lookup`; `_search_from_scan`).  Either way
+a segment's variants are a PathGroups of packed path records.
 
 Against a host-resident table (out of core, KmerTable.window_ranges)
 the scan runs in two passes, the first with the table's windows outer
@@ -48,8 +54,9 @@ from .table import u32_bits, widen_u32
 
 SNV, INS, DEL, COM = "SNV", "INS", "DEL", "COM"
 
-# branch points the host searched and the seconds those searches took,
-# summed over dbg_to_variants calls until the caller resets them
+# branch points searched (on the host or the card) and the seconds
+# those searches took, summed over dbg_to_variants calls until the
+# caller resets them
 SEARCH_STATS = {"branch_points": 0, "search_s": 0.0}
 
 
@@ -310,7 +317,8 @@ def dbg_to_variants(dbg, seg) -> None:
     whose search would terminate immediately with no discoveries
     (edge_count == explored_count == 0 — the overwhelmingly common
     case on a healthy assembly).  Only true branch points run the exact
-    host Fibonacci-heap search, preserving byte-identical output.
+    Fibonacci-heap search, on the card or on the host
+    (`_device_search`), preserving byte-identical output.
 
     The scan runs in fixed windows of at most _variants_window_cap()
     positions (the reference's analog: map-range paging re-scans,
@@ -335,7 +343,6 @@ def dbg_to_variants(dbg, seg) -> None:
     cutoff = dbg.ui.cov_cutoff
     codes = seg.codes
     cache: Dict[int, object] = {}
-    variants: List[List[DBGpath]] = []
 
     win = _variants_window_cap()
     lh = max_span                 # left halo (positions)
@@ -351,6 +358,8 @@ def dbg_to_variants(dbg, seg) -> None:
     # every scan window, table windows outer
     parts = (_probe_windows_inverted(dbg, codes, wins, k, ranges)
              if ranges is not None else None)
+    on_card = _device_search(dbg)
+    variants = PathGroups()
     for wi, (wa, wb, lo, hi) in enumerate(wins):
         # per-window progress is load-bearing at scale: long-running
         # CLI phases are watchdogged on output cadence
@@ -361,7 +370,8 @@ def dbg_to_variants(dbg, seg) -> None:
             probed = _upload_probe(parts[wi], dbg.table.device)
             parts[wi] = None  # free as we go
         _scan_window_variants(dbg, codes, lo, hi, wa, wb, kcount, k,
-                              max_span, cutoff, cache, variants, probed)
+                              max_span, cutoff, cache, variants, probed,
+                              on_card)
         if log.verbose_flag:
             log.verbose(f"variants window {wi + 1}/{nwin} done "
                         f"({len(variants)} positions with variants)")
@@ -406,9 +416,36 @@ def _upload_probe(part, device):
             vals[:, 5:9])
 
 
+def _device_search(dbg) -> bool:
+    """Whether the variant search runs on the card: the table is on
+    CUDA in the device form.  On the CPU and against a host-resident
+    table (out of core) the host search runs (_search_from_scan)."""
+    table = dbg.table
+    return table.device.type == "cuda" and table.window_ranges() is None
+
+
+def _window_scan(table, codes, lo: int, hi: int, wa: int, wb: int, k: int,
+                 cutoff: int, probed=None):
+    """The device half of one scan window (see _scan_window_variants):
+    (keys, isfw, covs, fws, bws) of buffer positions [lo, hi) and the
+    branch points among the core positions [wa, wb), buffer-relative,
+    all on the table's device."""
+    nbase = hi - lo + k - 1  # codes feeding positions [lo, hi)
+    cbuf = torch.from_numpy(codes[lo:lo + nbase]).to(table.device)
+    keys, isfw, valid = _extract_sentinel(cbuf, k)
+    found, covs, fws, bws = (probed if probed is not None
+                             else table.probe_device(keys))
+    search = _candidate_scan(keys, isfw, found & valid, covs, fws, bws,
+                             cutoff, k)[2]
+    search[:wa - lo] = False  # core positions only
+    search[wb - lo:] = False
+    return keys, isfw, covs, fws, bws, torch.nonzero(search).squeeze(1)
+
+
 def _scan_window_variants(dbg, codes, lo: int, hi: int, wa: int, wb: int,
                           kcount: int, k: int, max_span: int, cutoff: int,
-                          cache, variants, probed=None) -> None:
+                          cache, variants, probed=None,
+                          on_card: bool = False) -> None:
     """One fixed window [wa, wb) of the variants scan, probing buffer
     positions [lo, hi) (core + halos).
 
@@ -419,37 +456,113 @@ def _scan_window_variants(dbg, codes, lo: int, hi: int, wa: int, wb: int,
     Positions with no candidates are exactly those whose search
     extracts the source, explores nothing, and stops explored=True
     with no paths.  The buffer holds exactly the bases of [lo, hi): no
-    padding.  Then one bulk copy to the host of the window's keys and
-    orientations and of the core branch points' counters.  `probed`:
-    the window's probe result from pass 1 against a host-resident
-    table (_probe_windows_inverted); else the table is probed here."""
+    padding.  `on_card` (_device_search): the search runs on the card
+    from the scan's tensors; else one bulk copy to the host of the
+    window's keys and orientations and of the core branch points'
+    counters feeds the host search.  `probed`: the window's probe
+    result from pass 1 against a host-resident table
+    (_probe_windows_inverted); else the table is probed here."""
     from ..utils import log
 
-    table = dbg.table
     with log.span("kq.variants.scan"):
-        nbase = hi - lo + k - 1  # codes feeding positions [lo, hi)
-        cbuf = torch.from_numpy(codes[lo:lo + nbase]).to(table.device)
-        keys, isfw, valid = _extract_sentinel(cbuf, k)
-        found, covs, fws, bws = (probed if probed is not None
-                                 else table.probe_device(keys))
-        search = _candidate_scan(keys, isfw, found & valid, covs, fws, bws,
-                                 cutoff, k)[2]
-        search[:wa - lo] = False  # core positions only
-        search[wb - lo:] = False
-        rows = torch.nonzero(search).squeeze(1)
-        recs = tuple(a[rows].cpu().numpy() for a in (fws, bws, covs))
-        all_keys = keys_to_u64(keys.cpu().numpy())
-        all_isfw = isfw.cpu().numpy()
-        rows = rows.cpu().numpy()
+        keys, isfw, covs, fws, bws, rows = _window_scan(
+            dbg.table, codes, lo, hi, wa, wb, k, cutoff, probed)
+        if not on_card:
+            recs = tuple(a[rows].cpu().numpy() for a in (fws, bws, covs))
+            all_keys = keys_to_u64(keys.cpu().numpy())
+            all_isfw = isfw.cpu().numpy()
+            rows = rows.cpu().numpy()
     log.count("variants.positions", wb - wa)
-    log.count("variants.branch_points", int(rows.size))
+    log.count("variants.branch_points", int(rows.shape[0]))
+    log.count("variants.device_searches", int(rows.shape[0]) * on_card)
     with log.span("kq.variants.search"):
-        lookups, hits, paths = _search_from_scan(
-            dbg, lo, kcount, k, max_span, cache, variants, all_keys,
-            all_isfw, rows, recs)
+        if on_card:
+            lookups, hits, paths = _search_on_card(
+                dbg, lo, kcount, k, max_span, cutoff, variants, keys, isfw,
+                fws, bws, rows)
+        else:
+            lookups, hits, paths = _search_from_scan(
+                dbg, lo, kcount, k, max_span, cache, variants, all_keys,
+                all_isfw, rows, recs)
     log.count("variants.lookups", lookups)
     log.count("variants.cache_hits", hits)
     log.count("variants.paths", paths)
+
+
+_PATH_TYPES = (SNV, INS, DEL, COM)  # the kernel's type numbers
+_BASES = bytes.maketrans(bytes(range(4)), b"ACGT")
+_CODES = bytes.maketrans(b"ACGT", bytes(range(4)))
+
+
+class PathGroups:
+    """A segment's variants as packed path records, as the
+    variant_search kernel gives them (the host search packs its paths
+    alike), read (iterated, counted, tested for truth) as the
+    reference's list: one list of DBGpath a branch point with paths, in
+    position order.  The records stay arrays; a group's DBGpath objects
+    are made as it is read, so the tens of thousands of records of a
+    job never live on as Python objects, which would reach the garbage
+    collector's oldest generation and cost a full collection every
+    other job."""
+
+    def __init__(self) -> None:
+        # a window's (pos, type, ref_len, bases, offset) columns as
+        # lists in position order, its bases, its groups' first records
+        self._parts: List[tuple] = []
+        self._groups = 0
+
+    def add(self, recs: np.ndarray, bases: np.ndarray) -> None:
+        """One window's records, after every earlier window's: int64
+        [n, 5] rows of (pos, type, ref_len, bases, offset into `bases`),
+        a branch point's rows together and in destination order, the
+        branch points in any order; bases uint8 codes 0-3."""
+        if not recs.shape[0]:
+            return
+        recs = recs[np.argsort(recs[:, 0], kind="stable")]
+        pos = recs[:, 0]
+        firsts = np.flatnonzero(np.r_[True, pos[1:] != pos[:-1]])
+        self._parts.append((
+            *(recs[:, i].tolist() for i in range(5)),
+            bases.tobytes().translate(_BASES).decode(),
+            [*firsts.tolist(), recs.shape[0]]))
+        self._groups += firsts.size
+
+    def __len__(self) -> int:
+        return self._groups
+
+    def __iter__(self):
+        for pos, typ, ref_len, nb, off, seq, firsts in self._parts:
+            for a, b in zip(firsts, firsts[1:]):
+                yield [DBGpath(_PATH_TYPES[typ[r]], pos[r],
+                               seq[off[r]:off[r] + nb[r]], ref_len[r])
+                       for r in range(a, b)]
+
+
+def _search_on_card(dbg, lo: int, kcount: int, k: int, max_span: int,
+                    cutoff: int, variants, keys, isfw, fws, bws,
+                    rows) -> List[int]:
+    """Device tail of one variants window: one variant_search launch
+    over the branch points `rows` (relative to lo) of the scan's keys,
+    orientations and probe, against the device-form table; the path
+    records come back and join `variants`, a PathGroups.
+    Returns [table lookups, cache hits, records found]."""
+    from ..ops.kernels import variant_search_cuda
+
+    t0 = time.perf_counter()
+    n = int(rows.shape[0])
+    stats = [0, 0, 0]
+    if n:
+        table = dbg.table
+        recs, bases, counts = variant_search_cuda(
+            table.keys, table.fw, table.bw, keys, isfw, fws, bws, rows, lo,
+            kcount, k, max_span, cutoff, dbg.ui.resolved_kmer_depth(),
+            table.bucket_index())
+        stats[:2] = counts.sum(0).tolist()
+        variants.add(recs.cpu().numpy(), bases.cpu().numpy())
+        stats[2] = int(recs.shape[0])
+    SEARCH_STATS["branch_points"] += n
+    SEARCH_STATS["search_s"] += time.perf_counter() - t0
+    return stats
 
 
 def _search_from_scan(dbg, lo: int, kcount: int, k: int, max_span: int,
@@ -459,8 +572,9 @@ def _search_from_scan(dbg, lo: int, kcount: int, k: int, max_span: int,
     sliding targets state and run the exact Fibonacci-heap search on
     the branch points the device scan selected.  all_keys: u64 keys of
     buffer positions [lo, hi); search_rel: the branch points, relative
-    to lo; recs: (fw, bw, cov) of each branch point's table row.
-    Returns [table lookups, cache hits, records found]."""
+    to lo; recs: (fw, bw, cov) of each branch point's table row.  The
+    paths join `variants`, a PathGroups, packed as the kernel packs
+    them.  Returns [table lookups, cache hits, records found]."""
     t0 = time.perf_counter()
     stats = [0, 0, 0]
     nloc = all_keys.shape[0]           # buffer-relative; abs = rel + lo
@@ -524,6 +638,9 @@ def _search_from_scan(dbg, lo: int, kcount: int, k: int, max_span: int,
         return queue, tmap
 
     fws, bws, covs = recs
+    packed: List[tuple] = []  # (pos, type, ref_len, bases, offset)
+    seqs: List[str] = []
+    nbases = 0
     for j, c_rel in enumerate(search_rel):
         c = int(c_rel) + lo
         skey = int(all_keys[c_rel])
@@ -538,10 +655,14 @@ def _search_from_scan(dbg, lo: int, kcount: int, k: int, max_span: int,
             targets_map, cache, stats)
         assert ok, "searchVariants cannot end unexplored (see docstring)"
         for p in paths:
-            p.pos = c + k
-        if paths:
-            variants.append(paths)
-            stats[2] += len(paths)
+            packed.append((c + k, _PATH_TYPES.index(p.type), p.ref_len,
+                           len(p.sequence), nbases))
+            seqs.append(p.sequence)
+            nbases += len(p.sequence)
+        stats[2] += len(paths)
+    variants.add(np.array(packed, np.int64).reshape(-1, 5),
+                 np.frombuffer("".join(seqs).encode().translate(_CODES),
+                               np.uint8))
     SEARCH_STATS["branch_points"] += int(search_rel.size)
     SEARCH_STATS["search_s"] += time.perf_counter() - t0
     return stats

@@ -36,7 +36,9 @@ class Segment:
     comment: str = ""
     tags: list = field(default_factory=list)
     # populated by workloads
-    variants: list = field(default_factory=list)  # list[list[DBGpath]]
+    # read as list[list[DBGpath]]; core.variants.dbg_to_variants sets a
+    # PathGroups
+    variants: list = field(default_factory=list)
     _codes: Optional[np.ndarray] = None
 
     def __len__(self) -> int:

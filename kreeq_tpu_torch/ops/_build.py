@@ -43,6 +43,10 @@ _SIGNATURES = {
                         _P],
     "kq_extract": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
     "kq_sort_records": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "kq_variant_search": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I,
+                          _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P,
+                          _I, _P, _P, _I, _P],
+    "kq_variant_search_bytes": [_I, _I, _P],
 }
 
 _lib = None

@@ -186,6 +186,17 @@ def probe_sorted_bound_ms(tkeys, qkeys) -> float:
     return bound_ms(8 * q + 80 * touched_rows(tkeys, qkeys) + 73 * q)
 
 
+def variant_search_bound_ms(searches: int, lookups: int, records: int,
+                            bases: int) -> float:
+    """The variant search's byte bound, from a launch's own counts: per
+    search its row, source key, orientation byte, the source's fw and
+    bw rows and its two counts out (89 B); per table lookup a
+    directory entry and a key (16 B); per path record 40 B and a byte a
+    base out.  The kernel waits on each search's chain of dependent
+    reads, so it sits far above this."""
+    return bound_ms(89 * searches + 16 * lookups + 40 * records + bases)
+
+
 def touched_rows(tkeys, qkeys) -> int:
     """Distinct table rows that the queries find: the rows a probe must
     read at the least."""

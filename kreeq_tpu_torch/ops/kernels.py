@@ -19,6 +19,9 @@ the kernels.
                       fusions rather than a pl.pallas_call)
   sort_records_cuda <- csrc/sort_records.cu (TPU: jax.lax.sort in
                       kmers._sort_keys_edges, an XLA sort)
+  variant_search_cuda <- csrc/variant_search.cu (no TPU kernel: the
+                      host search of core/variants._search_from_scan,
+                      which stays the counterpart on the CPU)
 
 count_chunk_cuda is the count step of one chunk: the extraction's count
 form, the sort, then count_runs.
@@ -30,13 +33,15 @@ CUDA; without it they raise.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import kmers as K
 from . import validate as V
 
 LAUNCHES = {"count": 0, "merge": 0, "probe_qv": 0, "probe_select": 0,
-            "probe_sorted": 0, "extract": 0, "sort": 0}
+            "probe_sorted": 0, "extract": 0, "sort": 0, "variant_search": 0}
 
 
 def reset_launches() -> None:
@@ -373,3 +378,105 @@ def extract_cuda(codes, k: int, form: str = "records"):
             byte.data_ptr())
     LAUNCHES["extract"] += 1
     return _by_form(form, keys, isfw, valid, byte)
+
+
+# The device bytes a variant_search launch may keep of its searches'
+# state where a search does not fit shared memory (deeper than
+# --search-depth 62): the launch runs as many searches at a time as fit.
+VARIANT_SEARCH_STATE_BYTES = 1 << 28
+
+
+def _pool_sizes(n: int):
+    """First sizes of the path records and bases pools of n searches."""
+    paths = 2 * n + 64
+    return paths, 4 * paths
+
+
+def variant_search_cuda(tkeys, tfw, tbw, keys, isfw, fws, bws, rows,
+                        lo: int, kcount: int, k: int, max_span: int,
+                        cutoff: int, depth: int, index=None):
+    """The candidate-error search (core/variants.search_variants, with
+    _search_from_scan's targets state) from every branch point of one
+    variants scan window, against a device-form table (tkeys, tfw, tbw
+    and its bucket directory `index`), at any search depth >= 0.  keys,
+    isfw: the window's extraction over buffer positions lo + i; fws,
+    bws: their probe; rows: the branch points, buffer-relative,
+    ascending; kcount: the segment's k-mer positions.  Returns (paths
+    int64 [n, 5]: pos = c + k, type (0 SNV, 1 INS, 2 DEL, 3 COM),
+    ref_len, bases, offset into `bases`; a branch point's records
+    together, in destination order, the branch points in any order;
+    bases uint8 codes 0-3; counts int64 [len(rows), 2]: each search's
+    table lookups and cache hits).
+
+    CUDA tensors only: on the host the counterpart is the Python
+    search.  The pools are sized after the launch, so this wrapper
+    synchronises: a launch whose pools were too small is made again
+    with the sizes it counted.  With no branch point nothing launches.
+    Raises if a search broke an invariant of the host's search, and for
+    a depth below 0 (the host's search of such a depth ends unexplored
+    and raises too)."""
+    tab = (tkeys, tfw, tbw)
+    win = (keys, isfw, fws, bws, rows)
+    if not _on_cuda("variant_search", *tab, *win):
+        raise ValueError("variant_search: CUDA tensors only (the host "
+                         "search is core/variants._search_from_scan)")
+    if depth < 0:
+        raise ValueError(f"variant_search: depth {depth} < 0")
+    if not 1 <= k <= 32:
+        raise ValueError(f"variant_search: k = {k} outside 1..32")
+    from ._build import library
+
+    lib = library()
+    t = tkeys.shape[0]
+    _check("variant_search tkeys", tkeys, torch.int64, (t,))
+    _check("variant_search tfw", tfw, torch.int64, (t, 4))
+    _check("variant_search tbw", tbw, torch.int64, (t, 4))
+    if t >= 1 << 32:
+        raise ValueError(f"variant_search: {t} table rows (rows are u32)")
+    starts, nb, shift = _check_index("variant_search", index, tkeys)
+    nloc = keys.shape[0]
+    _check("variant_search keys", keys, torch.int64, (nloc,))
+    _check("variant_search isfw", isfw, torch.bool, (nloc,))
+    _check("variant_search fws", fws, torch.int64, (nloc, 4))
+    _check("variant_search bws", bws, torch.int64, (nloc, 4))
+    n = rows.shape[0]
+    _check("variant_search rows", rows, torch.int64, (n,))
+    if n >= (1 << 32) - 1:
+        raise ValueError(f"variant_search: {n} searches (u32 stamps)")
+    dev = keys.device
+    counts = torch.empty((n, 2), dtype=torch.int64, device=dev)
+    if n == 0:  # nothing to search: no launch, so no count
+        return (torch.empty((0, 5), dtype=torch.int64, device=dev),
+                torch.empty(0, dtype=torch.uint8, device=dev), counts)
+    # a search extracts at most one node a table row: a deeper search
+    # runs as one of that depth
+    depth = min(depth, t)
+    per = ctypes.c_int64()
+    rc = lib.kq_variant_search_bytes(depth, t, ctypes.addressof(per))
+    if rc != 0:
+        raise RuntimeError("variant_search: "
+                           + lib.kq_error_string(rc).decode())
+    per = per.value
+    nstate = (max(per, min(VARIANT_SEARCH_STATE_BYTES,
+                           -(-n // 32) * 32 * per)) if per else 0)
+    state = torch.empty(nstate, dtype=torch.uint8, device=dev)
+    cap_paths, cap_bases = _pool_sizes(n)
+    while True:
+        paths = torch.empty((cap_paths, 5), dtype=torch.int64, device=dev)
+        bases = torch.empty(cap_bases, dtype=torch.uint8, device=dev)
+        used = torch.zeros(3, dtype=torch.int64, device=dev)
+        state.zero_()
+        _launch("variant_search", lib.kq_variant_search,
+                *_ptrs(*tab), t, starts.data_ptr(), nb, shift,
+                *_ptrs(*win[:4]), nloc, rows.data_ptr(), n, lo, kcount, k,
+                max_span, cutoff, depth, counts.data_ptr(),
+                paths.data_ptr(), cap_paths, bases.data_ptr(), cap_bases,
+                used.data_ptr(), state.data_ptr(), nstate)
+        LAUNCHES["variant_search"] += 1
+        npaths, nbases, faults = used.tolist()
+        if faults:
+            raise RuntimeError(f"variant_search: {faults} searches broke "
+                               "an invariant of the host search")
+        if npaths <= cap_paths and nbases <= cap_bases:
+            return paths[:npaths], bases[:nbases], counts
+        cap_paths, cap_bases = max(cap_paths, npaths), max(cap_bases, nbases)

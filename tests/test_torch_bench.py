@@ -186,7 +186,7 @@ def test_result_lines_schema():
         == stages["count"]["records"] // 2
     assert set(extra["launches"]) == {"count", "merge", "probe_qv",
                                       "probe_select", "probe_sorted",
-                                      "extract", "sort"}
+                                      "extract", "sort", "variant_search"}
     assert "incomplete" not in extra
 
 

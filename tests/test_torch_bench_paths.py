@@ -242,7 +242,7 @@ def _drop_last(fn):
         if isinstance(arg, dict):
             arg.popitem()
         else:
-            arg.variants.pop()
+            arg.variants = list(arg.variants)[:-1]
     return dropped
 
 
