@@ -469,21 +469,18 @@ def check_launches(launches, keys, path: str) -> None:
 
 
 def drive(argv, keys, name: str, device):
-    """One CLI run as a main path: the launch counts and the variants and
-    subgraph search counts are set to 0 just before it and read just
-    after; every kernel in `keys` must have launched.  Returns (stdout,
-    launches, phases, wall seconds, peak device GiB)."""
+    """One CLI run as a main path: the launch counts are set to 0 just
+    before it and read just after; every kernel in `keys` must have
+    launched.  Its spans and counters are the job record it leaves last
+    in utils/log.jobs.  Returns (stdout, launches, phases, wall seconds,
+    peak device GiB)."""
     import torch
 
-    from kreeq_tpu_torch.core import subgraph, variants
     from kreeq_tpu_torch.ops import kernels
     from kreeq_tpu_torch.utils import log as klog
 
     kernels.reset_launches()
     klog._phases.clear()
-    variants.SEARCH_STATS.update(branch_points=0, search_s=0.0)
-    subgraph.SUBGRAPH_STATS.update(seed=0, blue=0, rounds=[], sources=0,
-                                   search_s=0.0)
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     out = run_cli(argv)
@@ -1124,8 +1121,8 @@ def phase_variants(fa, tmp, qv_rows, device):
     (`drive`)."""
     import torch
 
-    from kreeq_tpu_torch.core import variants
     from kreeq_tpu_torch.ops import kernels
+    from kreeq_tpu_torch.utils import log as klog
 
     os.environ.pop("KREEQ_TPU_PLATFORM", None)
     db = os.path.join(tmp, "reads.kreeq")
@@ -1173,7 +1170,9 @@ def phase_variants(fa, tmp, qv_rows, device):
     _out, l_vcf = path(["kreeq", "validate", "-d", db, "-f", cut, "-o",
                         vcf], ("extract", "probe_sorted", "variant_search"),
                        "variants")
-    stats = dict(variants.SEARCH_STATS)
+    job = klog.jobs[-1]
+    branch_points = job["counters"]["variants.branch_points"]
+    search_s = job["spans"]["kq.variants.search"]["total_s"]
     with open(vcf) as fh:
         recs = [line.rstrip("\n").split("\t") for line in fh
                 if not line.startswith("#")]
@@ -1187,9 +1186,9 @@ def phase_variants(fa, tmp, qv_rows, device):
     snvs = sum(1 for rec in recs if len(rec[3]) == len(rec[4]) == 1)
     log(f"[8 variants] anomalies over {len(ranges)} ranges "
         f"({flagged} positions), QV rows equal phase 4's; VCF of "
-        f"{CUT_VCF} bases of chr2: {stats['branch_points']} branch points "
-        f"({stats['branch_points'] / (CUT_VCF - K + 1):.2%} of positions), "
-        f"search {stats['search_s']:.2f} s, {len(recs)} rows ({snvs} "
+        f"{CUT_VCF} bases of chr2: {branch_points} branch points "
+        f"({branch_points / (CUT_VCF - K + 1):.2%} of positions), "
+        f"search {search_s:.2f} s, {len(recs)} rows ({snvs} "
         "SNV), "
         "every REF equal to the assembly at its POS")
     return l_vcf, check_variant_search(db, cut, device)
@@ -1383,7 +1382,7 @@ def phase_subgraph(tmp, device):
     8's CUT_VCF bases of chr2: B5 held against its plain version at this
     path's shapes, then traversal and best-first.  Each CLI run is a
     main path (`drive`)."""
-    from kreeq_tpu_torch.core import subgraph
+    from kreeq_tpu_torch.utils import log as klog
 
     os.environ.pop("KREEQ_TPU_PLATFORM", None)
     db = os.path.join(tmp, "reads.kreeq")
@@ -1396,7 +1395,9 @@ def phase_subgraph(tmp, device):
                 "--traversal-algorithm", alg, "-o", gfa]
         stdout, launches, phases, wall, peak = drive(
             argv, ("extract", "probe_sorted"), f"subgraph {alg}", device)
-        st = dict(subgraph.SUBGRAPH_STATS)
+        job = klog.jobs[-1]
+        st = {name.split(".", 1)[1]: n for name, n in job["counters"].items()
+              if name.startswith("subgraph.")}
         stats = _graph_stats(stdout)
         with open(gfa) as fh:
             kinds = [line[0] for line in fh]
@@ -1417,14 +1418,15 @@ def phase_subgraph(tmp, device):
         log(f"    seed {st['seed']} nodes ({st['blue']} blue), distinct "
             f"{stats['Distinct kmers']}, {stats['# segments']} segments, "
             f"{stats['# edges']} edges, {stats['# bubbles']} bubbles")
-        for i, (found, scan_ms, probe_ms) in enumerate(st["rounds"]):
-            log(f"    round {i + 1}: {found} new nodes, survivor scan "
-                f"{scan_ms:.3f} ms, probe {probe_ms:.3f} ms")
-        if st["sources"]:
+        if "rounds" in st:
+            log(f"    {st['rounds']} traversal rounds, "
+                f"{st['round_nodes']} new nodes")
+        if st.get("sources"):
+            search_s = job["spans"]["kq.subgraph.search"]["total_s"]
             log(f"    boundary sources {st['sources']} "
                 f"({st['sources'] / st['seed']:.2%} of the seed), host "
-                f"search {st['search_s']:.2f} s "
-                f"({st['search_s'] / st['sources'] * 1e3:.3f} ms each)")
+                f"search {search_s:.2f} s "
+                f"({search_s / st['sources'] * 1e3:.3f} ms each)")
 
 
 OOC_ROWS = 10_000_000  # phase 10's KREEQ_TPU_MAX_TABLE_ROWS
@@ -1454,46 +1456,35 @@ def env(**values):
                 os.environ[k] = v
 
 
-def ooc_report(device) -> dict:
-    """What the out-of-core path recorded since the last call: the
-    windowed probes and host merges (core/table.OOC_STATS), the
-    checkpoint writes (core/build_ckpt.CKPT_STATS), and the window
-    uploads and directory builds of the CLI jobs run since (the spans
-    kq.ooc.upload and kq.ooc.index of utils/log.jobs: calls and host
-    seconds); clears the records."""
-    from kreeq_tpu_torch.core.build_ckpt import CKPT_STATS
-    from kreeq_tpu_torch.core.table import OOC_STATS
+def ooc_report() -> dict:
+    """What the out-of-core path recorded in the jobs since the last
+    call (utils/log.jobs), summed: the calls and host seconds of the
+    window uploads and directory builds (spans kq.ooc.upload and
+    kq.ooc.index), the host merges (kq.build.host_merge) and the
+    checkpoint writes and resumes (kq.ckpt.write, kq.ckpt.resume), and
+    the ooc.*, build.host_merge_* and ckpt.* counters; clears the
+    records."""
     from kreeq_tpu_torch.utils import log as klog
 
-    st = OOC_STATS
-    probes = {}
-    for name, w, q in st["probe"]:
-        n, queries = probes.get((name, w), (0, 0))
-        probes[name, w] = (n + 1, queries + q)
     jobs = list(klog.jobs)
+    klog.jobs.clear()
 
     def spans(name):
         recs = [j["spans"][name] for j in jobs if name in j["spans"]]
         return {"calls": sum(r["calls"] for r in recs),
                 "s": sum(r["total_s"] for r in recs)}
 
-    out = {
-        "windows": sorted({w for _name, w, _q in st["probe"]}),
-        "uploads": spans("kq.ooc.upload"),
-        "index": spans("kq.ooc.index"),
-        "probes": [{"kernel": name, "window": w, "calls": n,
-                    "queries": q}
-                   for (name, w), (n, q) in sorted(probes.items())],
-        "host_merges": [{"rows_a": a, "rows_b": b, "rows_out": m, "s": t}
-                        for a, b, m, t in st["host_merge"]],
-        "ckpt_writes": [{"op": op, "name": name, "rows": rows, "s": t}
-                        for op, name, rows, t in CKPT_STATS["write"]],
-    }
-    for v in st.values():
-        v.clear()
-    klog.jobs.clear()
-    CKPT_STATS["write"] = []
-    return out
+    counters = {}
+    for j in jobs:
+        for name, n in j["counters"].items():
+            if name.startswith(("ooc.", "build.host_merge_", "ckpt.")):
+                counters[name] = counters.get(name, 0) + n
+    return {"uploads": spans("kq.ooc.upload"),
+            "index": spans("kq.ooc.index"),
+            "host_merges": spans("kq.build.host_merge"),
+            "ckpt_writes": spans("kq.ckpt.write"),
+            "ckpt_resumes": spans("kq.ckpt.resume"),
+            "counters": counters}
 
 
 def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
@@ -1511,6 +1502,7 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
     from kreeq_tpu_torch.core.table import KmerTable, max_device_rows
     from kreeq_tpu_torch.io.kreeqdb import read_kreeq
     from kreeq_tpu_torch.ops import kernels
+    from kreeq_tpu_torch.utils import log as klog
 
     os.environ.pop("KREEQ_TPU_PLATFORM", None)
     db = os.path.join(tmp, "reads.kreeq")
@@ -1520,27 +1512,23 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
               "max_table_rows": OOC_ROWS, "host_merge_rows": OOC_MERGE_ROWS,
               "steps": {}}
     total = {key: 0 for key in kernels.LAUNCHES}
-    ooc_report(device)
+    ooc_report()
 
     def step(name, wall, launches, peak, **extra):
         rec = {"wall_s": wall, "launches": launches, "peak_gib": peak,
-               **ooc_report(device), **extra}
+               **ooc_report(), **extra}
         report["steps"][name] = rec
         for key, n in launches.items():
             total[key] += n
         merges = rec["host_merges"]
         ups = rec["uploads"]
         log(f"    ({name}) wall {wall:.2f} s, peak device memory "
-            f"{peak:.2f} GiB; launches {launches}; windows probed "
-            f"{rec['windows']}; {ups['calls']} window uploads, "
-            f"{ups['s'] * 1e3:.2f} host ms in all; "
-            f"{len(merges)} host merges, {sum(m['s'] for m in merges):.2f}"
-            " s in all"
+            f"{peak:.2f} GiB; launches {launches}; {ups['calls']} window "
+            f"uploads, {ups['s'] * 1e3:.2f} host ms in all; "
+            f"{merges['calls']} host merges, {merges['s']:.2f} s in all; "
+            f"{rec['counters']}"
             + "".join(f"; {k} {v}" for k, v in extra.items()))
         return rec
-
-    def windows_of(rec):
-        return rec["windows"]
 
     built = []
     plain_from_reads = KmerTable.from_reads.__func__
@@ -1566,13 +1554,13 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
         if out != validate_out:
             raise AssertionError("out-of-core `validate -r -f` stdout "
                                  "differs from phase 4's")
-        if not rec["host_merges"] or not table.on_host:
+        if not rec["host_merges"]["calls"] or not table.on_host:
             raise AssertionError("(a): no merge ran on the host, or the "
                                  "table is not host-resident")
         nwin = len(table.window_ranges())
-        if windows_of(rec) != list(range(nwin)) or nwin != 3:
-            raise AssertionError(f"(a): windows {windows_of(rec)}, "
-                                 f"expected {nwin} = 3")
+        if rec["uploads"]["calls"] < nwin or nwin != 3:
+            raise AssertionError(f"(a): {rec['uploads']['calls']} window "
+                                 f"uploads, expected {nwin} = 3 windows")
 
         # (b) the DB loaded host-resident, the track path
         bkwig = os.path.join(tmp, "asm.ooc.bkwig")
@@ -1582,7 +1570,7 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
         rec = step("b", wall, lb, peak, load_s=ph["load k-mer DB"],
                    validate_s=ph["validate"])
         # only a host-resident table is probed in windows
-        if windows_of(rec) != list(range(nwin)):
+        if rec["uploads"]["calls"] < nwin:
             raise AssertionError("(b): the DB did not load host-resident")
         same_output(bkwig, os.path.join(tmp, "asm.bkwig"))
 
@@ -1626,7 +1614,7 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
         if windowed:
             step("e", wall, le, peak, search_s=ph["search"])
         else:
-            ooc_report(device)
+            ooc_report()
         gfas.append(gfa)
     same_output(*gfas)
 
@@ -1640,7 +1628,8 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
         kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        spilled = incore.merge(incore)
+        with klog.job():
+            spilled = incore.merge(incore)
         wall = time.perf_counter() - t0
         lf = dict(kernels.LAUNCHES)
         got = spilled.to_numpy()
@@ -1679,7 +1668,7 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         with env(BUILD_CKPT=ckpt, BUILD_CKPT_BATCH=CKPT_BATCH,
-                 BUILD_CKPT_CRASH_AFTER=2):
+                 BUILD_CKPT_CRASH_AFTER=2), klog.job():
             try:
                 KmerTable.from_reads([fq], K, device)
             except RuntimeError as e:
@@ -1691,7 +1680,8 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
         parts_before = sorted(f for f in os.listdir(ckpt)
                               if f.endswith(".keys.npy"))
         t0 = time.perf_counter()
-        with env(BUILD_CKPT=ckpt, BUILD_CKPT_BATCH=CKPT_BATCH):
+        with env(BUILD_CKPT=ckpt, BUILD_CKPT_BATCH=CKPT_BATCH), \
+                klog.job() as resume_job:
             resumed = KmerTable.from_reads([fq], K, device)
         resume_wall = time.perf_counter() - t0
         lg = dict(kernels.LAUNCHES)
@@ -1709,7 +1699,7 @@ def phase_out_of_core(fq, fa, tmp, validate_out, card, device):
         step("g", crash_s + resume_wall, lg,
              torch.cuda.max_memory_allocated(device) / 2**30,
              crash_run_s=crash_s, resume_run_s=resume_wall,
-             replay_s=build_ckpt.CKPT_STATS["resume_s"])
+             replay_s=resume_job["spans"]["kq.ckpt.resume"]["total_s"])
         del resumed, table, built[:]
         shutil.rmtree(ckpt)
     log(f"[10 out of core] caps {OOC_ROWS} rows a window, host merges "
@@ -1835,11 +1825,28 @@ def build_records(err: str) -> list:
             for line in err.splitlines() if "distributed build " in line]
 
 
+def shard_record(job) -> dict:
+    """What the collectives of a job record (utils/log.jobs) did: for
+    route, back and gather, the calls and host seconds of the span
+    kq.shard.<name> and the rows and bytes of its counters; for gather
+    also the gathers into host memory."""
+    spans, counters = job["spans"], job["counters"]
+    out = {}
+    for name in ("route", "back", "gather"):
+        span = spans.get(f"kq.shard.{name}", {"calls": 0, "total_s": 0.0})
+        out[name] = {"calls": span["calls"], "s": span["total_s"],
+                     "rows": counters.get(f"shard.{name}_rows", 0),
+                     "bytes": counters.get(f"shard.{name}_bytes", 0)}
+    out["gather"]["host_calls"] = counters.get("shard.host_gathers", 0)
+    return out
+
+
 def rank_worker(spec_path: str) -> int:
     """One rank of phase 11: job "cli" runs the port's CLI (rank 0's
     stdout is the CLI's); job "checks" runs (c) and (d).  Writes the
-    result, with the launches, wall and peak device memory, to the
-    job's "out" file."""
+    result, with the launches, wall and peak device memory (and for
+    "cli" what the CLI job's collectives did), to the job's "out"
+    file."""
     import torch
 
     from kreeq_tpu_torch.ops import kernels
@@ -1856,6 +1863,7 @@ def rank_worker(spec_path: str) -> int:
         sys.stdout.flush()
         res["launches"] = dict(kernels.LAUNCHES)
         res["build_s"] = dict(klog._phases)["build k-mer DB"]
+        res["shard"] = shard_record(klog.jobs[-1])
     else:
         res = rank_checks(spec)
     res["wall_s"] = time.perf_counter() - t0
@@ -1897,6 +1905,7 @@ def rank_checks(spec: dict) -> dict:
     from kreeq_tpu_torch.ops import kernels
     from kreeq_tpu_torch.ops import kmers as KM
     from kreeq_tpu_torch.parallel import multihost, sharded
+    from kreeq_tpu_torch.utils import log as klog
 
     if not multihost.maybe_initialize():
         raise AssertionError("no launch: the KREEQ_TPU_* variables are "
@@ -1917,9 +1926,9 @@ def rank_checks(spec: dict) -> dict:
     asm = torch.from_numpy(seq_to_codes(seq if rank == 0 else "")).to(
         device)
     kernels.reset_launches()
-    sharded.stats_report(device)
     with timed_calls(kernels, "count_runs_cuda") as counts, \
-            timed_calls(kernels, "probe_sorted_cuda") as probes:
+            timed_calls(kernels, "probe_sorted_cuda") as probes, \
+            klog.job() as job:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _qf, _qc, tot, miss, emiss = sharded.full_pipeline(reads, asm, K,
@@ -1929,8 +1938,7 @@ def rank_checks(spec: dict) -> dict:
     res["c"] = {"wall_s": wall, "sums": [tot, miss, emiss],
                 "read_bases": int(buf.shape[0]),
                 "window": max(int(asm.shape[0]) - K + 1, 0),
-                "launches": dict(kernels.LAUNCHES),
-                **sharded.stats_report(device),
+                "launches": dict(kernels.LAUNCHES), **shard_record(job),
                 "count_runs": _checked("count_runs", KM.count_runs, counts),
                 "probe_sorted": _checked(
                     "probe_sorted", lambda *a: KM.probe_sorted(*a[:5]),
@@ -1942,15 +1950,15 @@ def rank_checks(spec: dict) -> dict:
     # (d)
     db = read_kreeq(spec["db"], device)
     kernels.reset_launches()
-    with timed_calls(kernels, "merge_sorted_cuda") as merges:
+    with timed_calls(kernels, "merge_sorted_cuda") as merges, \
+            klog.job() as job:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         merged = db.merge_sharded(db, group)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     res["d"] = {"wall_s": wall, "rows": len(merged),
-                "launches": dict(kernels.LAUNCHES),
-                **sharded.stats_report(device),
+                "launches": dict(kernels.LAUNCHES), **shard_record(job),
                 "merge_sorted": _checked("merge_sorted", KM.merge_sorted,
                                          merges),
                 "digest": table_digest(merged.to_numpy())}
@@ -1989,7 +1997,8 @@ def phase_sharded(fq, fa, tmp, validate_out, ooc, card, device):
     from kreeq_tpu_torch.ops import kmers as KM
     from kreeq_tpu_torch.ops.index import bucket_index
     from kreeq_tpu_torch.ops.validate import validate_qv_sums
-    from kreeq_tpu_torch.parallel import multihost, sharded
+    from kreeq_tpu_torch.parallel import multihost
+    from kreeq_tpu_torch.utils import log as klog
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -2019,30 +2028,32 @@ def phase_sharded(fq, fa, tmp, validate_out, ooc, card, device):
                 raise AssertionError(f"({name}) rank {r} logged no gloo "
                                      "group on cuda:0")
             (build,) = build_records(err)
+            shard = res["shard"]
             # the gathered table goes into host memory above a quarter
             # of the row cap (table.device_gather_rows), and only there
-            if build["gather"]["host_calls"] != (name == "e"):
+            if shard["gather"]["host_calls"] != (name == "e"):
                 raise AssertionError(
                     f"({name}) rank {r} gathered into host memory "
-                    f"{build['gather']['host_calls']} times")
+                    f"{shard['gather']['host_calls']} times")
             check_launches(res["launches"], keys, f"({name}) rank {r}")
             add(res["launches"])
             rec = {"wall_s": wall, "run_s": res["wall_s"],
                    "build_s": res["build_s"],
                    "peak_gib": res["peak_gib"],
-                   "launches": res["launches"], "build": build}
+                   "launches": res["launches"], "build": build,
+                   "shard": shard}
             recs.append(rec)
             log(f"    ({name}) rank {r}: wall {wall:.2f} s from the "
                 f"spawn, {res['wall_s']:.2f} s in the CLI (build "
                 f"{res['build_s']:.2f} s), "
                 f"{build['chunks']} chunks in {build['rounds']} rounds, "
-                f"routed {build['route']['rows']} records "
-                f"({build['route']['bytes'] / 1e6:.1f} MB) in "
-                f"{build['route']['ms']:.1f} ms, gathered "
-                f"{build['gather']['rows']} rows "
-                f"({build['gather']['bytes'] / 1e6:.1f} MB) in "
-                f"{build['gather']['ms']:.1f} ms (into host memory: "
-                f"{build['gather']['host_calls']}); B1 "
+                f"routed {shard['route']['rows']} records "
+                f"({shard['route']['bytes'] / 1e6:.1f} MB) in "
+                f"{shard['route']['s']:.3f} host s, gathered "
+                f"{shard['gather']['rows']} rows "
+                f"({shard['gather']['bytes'] / 1e6:.1f} MB) in "
+                f"{shard['gather']['s']:.3f} host s (into host memory: "
+                f"{shard['gather']['host_calls']}); B1 "
                 f"{build['launches']['count']}, B2 "
                 f"{build['launches']['merge']} launches in the build; "
                 f"peak device memory {res['peak_gib']:.2f} GiB; "
@@ -2066,9 +2077,8 @@ def phase_sharded(fq, fa, tmp, validate_out, ooc, card, device):
                 "MAX_TABLE_ROWS": OOC_ROWS,
                 "HOST_MERGE_ROWS": OOC_MERGE_ROWS})):
             kernels.reset_launches()
-            sharded.stats_report(device)
             torch.cuda.reset_peak_memory_stats(device)
-            with env(**caps):
+            with env(**caps), klog.job() as job:
                 t0 = time.perf_counter()
                 built = multihost.build_table_distributed(
                     files, K, device, group=dist.group.WORLD)
@@ -2078,7 +2088,7 @@ def phase_sharded(fq, fa, tmp, validate_out, ooc, card, device):
             rec = {"wall_s": wall, "rows": len(built), "launches": lb,
                    "on_host": built.on_host, "peak_gib":
                    torch.cuda.max_memory_allocated(device) / 2**30,
-                   **sharded.stats_report(device)}
+                   **shard_record(job)}
             check_launches(lb, ("extract", "count", "merge"),
                            f"({name}) NCCL build")
             add(lb)
@@ -2097,8 +2107,9 @@ def phase_sharded(fq, fa, tmp, validate_out, ooc, card, device):
             log(f"    ({name}) NCCL, 1 rank, caps {caps}: wall "
                 f"{wall:.2f} s, {rec['rows']} rows equal phase 6's DB, on "
                 f"the host: {rec['on_host']}; route "
-                f"{rec['route']['calls']} calls {rec['route']['ms']:.1f} ms, "
-                f"gather {rec['gather']['ms']:.1f} ms (into host memory: "
+                f"{rec['route']['calls']} calls, {rec['route']['s']:.3f} "
+                f"host s, gather {rec['gather']['s']:.3f} host s (into "
+                "host memory: "
                 f"{rec['gather']['host_calls']}); peak device memory "
                 f"{rec['peak_gib']:.2f} GiB; launches {lb}")
     finally:
@@ -2145,13 +2156,14 @@ def phase_sharded(fq, fa, tmp, validate_out, ooc, card, device):
             f"{c['probe_sorted']['calls']} calls of "
             f"{c['probe_sorted']['shapes']} "
             f"{sum(c['probe_sorted']['ms']):.2f} ms, exact; route "
-            f"{c['route']['ms']:.1f} ms, back {c['back']['ms']:.1f} ms")
+            f"{c['route']['s']:.3f} host s, back {c['back']['s']:.3f} host "
+            "s")
         log(f"    (d) rank {r}: merge_sharded {d['wall_s']:.2f} s, "
             f"{d['rows']} rows equal phase 10 (f)'s; B2 "
             f"{d['merge_sorted']['calls']} calls of "
             f"{d['merge_sorted']['shapes']} "
             f"{sum(d['merge_sorted']['ms']):.2f} ms, exact; gather "
-            f"{d['gather']['ms']:.1f} ms; peak device memory "
+            f"{d['gather']['s']:.3f} host s; peak device memory "
             f"{res['peak_gib']:.2f} GiB")
 
     # (e) sharded and windowed

@@ -133,6 +133,7 @@ def run(n: int, device):
     from .core.table import KmerTable
     from .io.sequence import Genome
     from .ops import kernels
+    from .utils import log
 
     kernels.reset_launches()
     steps = Steps()
@@ -158,15 +159,13 @@ def run(n: int, device):
     seed = fields(sub1)
     sub2 = dict(sub1)
     say(f"seed subgraph: {len(sub1)} nodes")
-    S.SUBGRAPH_STATS.update(seed=len(sub1), rounds=[], blue=sum(
-        1 for nd in sub1.values() if nd.color == 1))
+    blue = sum(1 for *_, color in seed if color == 1)
 
     warm = dict(sub1)
     with steps("traversal_cold"), probes(table) as rounds:
         S.traversal(dbg, warm)
     say(f"batched traversal (cold): {steps.s['traversal_cold']:6.2f}s")
-    S.SUBGRAPH_STATS["rounds"] = []
-    with steps("traversal_warm"):
+    with steps("traversal_warm"), log.job() as trav:
         S.traversal(dbg, sub1)
     t_new = steps.s["traversal_warm"]
     say(f"batched traversal (warm): {t_new:6.2f}s -> {len(sub1)} nodes")
@@ -189,8 +188,7 @@ def run(n: int, device):
         sub3 = S.extract_subgraph(dbg)
     sub4 = dict(sub3)
     bf_seed = fields(sub3)
-    S.SUBGRAPH_STATS.update(sources=0, search_s=0.0)
-    with steps("best_first"):
+    with steps("best_first"), log.job() as bf:
         out_new = S.best_first(dbg, sub3)
     t_bf = steps.s["best_first"]
     say(f"prefiltered best-first: {t_bf:6.2f}s -> {len(out_new)} nodes")
@@ -212,11 +210,11 @@ def run(n: int, device):
         say(b5_line(name.replace("_", " "), rec))
     for c in steps.host_copy:
         say(f"table host copy: {c['s']:.2f}s (in {c['step']})")
-    st = S.SUBGRAPH_STATS
+    warm_rounds = trav["counters"].get("subgraph.rounds", 0)
     # the warm traversal probes the cold one's batches: the same rounds
-    if len(rounds["sizes"]) != len(st["rounds"]):
+    if len(rounds["sizes"]) != warm_rounds:
         raise AssertionError(f"{len(rounds['sizes'])} cold rounds, "
-                             f"{len(st['rounds'])} warm")
+                             f"{warm_rounds} warm")
     record = {
         "bench": "subgraph", "device": card(device), "n": n, "k": K,
         "table_rows": len(table), "assembly_bases": len(asm),
@@ -224,11 +222,11 @@ def run(n: int, device):
         "best_first_nodes": len(out_new), "steps_s": steps.s,
         "table_host_copy": steps.host_copy,
         "subgraph_stats": {
-            "seed": st["seed"], "blue": st["blue"],
-            "rounds": [{"q": q, "new": r[0], "scan_ms": r[1],
-                        "probe_ms": r[2]}
-                       for q, r in zip(rounds["sizes"], st["rounds"])],
-            "sources": st["sources"], "search_s": st["search_s"]},
+            "seed": len(seed), "blue": blue,
+            "rounds": [{"q": q} for q in rounds["sizes"]],
+            "round_nodes": trav["counters"].get("subgraph.round_nodes", 0),
+            "sources": bf["counters"]["subgraph.sources"],
+            "search_s": bf["spans"]["kq.subgraph.search"]["total_s"]},
         "traversal_warm_s_per_mbp": t_new / (len(asm) / 1e6),
         "speedup": {"traversal": t_old / t_new, "best_first": t_ex / t_bf},
         "identical": {"traversal": True, "best_first": True}, "b5": b5,

@@ -143,6 +143,7 @@ def run(n: int, device):
     from .core.table import KmerTable
     from .io.sequence import Genome
     from .ops import kernels
+    from .utils import log
 
     kernels.reset_launches()
     steps = Steps()
@@ -163,10 +164,10 @@ def run(n: int, device):
 
     with steps("batched_warmup"), probes(table) as window:
         V.dbg_to_variants(dbg, seg)
-    V.SEARCH_STATS.update(branch_points=0, search_s=0.0)
-    with steps("batched"):
+    with steps("batched"), log.job() as job:
         V.dbg_to_variants(dbg, seg)
-    search = dict(V.SEARCH_STATS)
+    search = {"branch_points": job["counters"]["variants.branch_points"],
+              "search_s": job["spans"]["kq.variants.search"]["total_s"]}
     t_new = steps.s["batched"]
     n_vars = sum(len(v) for v in seg.variants)
     say(f"batched:      {t_new:8.2f}s  ({len(seg.variants)} variant "

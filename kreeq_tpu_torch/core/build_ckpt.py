@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -57,15 +56,10 @@ import torch
 import torch.distributed as dist
 
 from ..constants import keys_from_u64, keys_to_u64
+from ..utils import log
 
 MANIFEST = "manifest.jsonl"
 _ARRS = ("keys", "cov", "fw", "bw")
-
-# what the checkpointed builds did, until the caller clears it:
-#   resume_s - seconds of the last build's replay of the manifest and
-#              reclaim of orphan files
-#   write    - (op, name, rows, seconds) per part or merge output written
-CKPT_STATS = {"resume_s": 0.0, "write": []}
 
 
 def _append_manifest(ckpt_dir: str, rec: dict) -> None:
@@ -102,14 +96,17 @@ def _read_manifest(ckpt_dir: str) -> list:
 
 def _write_part(ckpt_dir: str, name: str, arrs) -> None:
     """Write host arrays (int64 keys, u32 counters) as the JAX
-    package's part files (u64 keys)."""
+    package's part files (u64 keys): the span kq.ckpt.write (counter
+    ckpt.rows)."""
     keys, cov, fw, bw = arrs
-    for field, a in zip(_ARRS, (keys_to_u64(keys), cov, fw, bw)):
-        tmp = os.path.join(ckpt_dir, f".{name}.{field}.tmp.npy")
-        np.save(tmp, np.ascontiguousarray(a))
-        with open(tmp, "rb") as fh:
-            os.fsync(fh.fileno())
-        os.replace(tmp, os.path.join(ckpt_dir, f"{name}.{field}.npy"))
+    with log.span("kq.ckpt.write"):
+        for field, a in zip(_ARRS, (keys_to_u64(keys), cov, fw, bw)):
+            tmp = os.path.join(ckpt_dir, f".{name}.{field}.tmp.npy")
+            np.save(tmp, np.ascontiguousarray(a))
+            with open(tmp, "rb") as fh:
+                os.fsync(fh.fileno())
+            os.replace(tmp, os.path.join(ckpt_dir, f"{name}.{field}.npy"))
+    log.count("ckpt.rows", len(keys))
 
 
 def _read_part(ckpt_dir: str, name: str):
@@ -155,13 +152,6 @@ class _CrashHook:
                 "KREEQ_TPU_BUILD_CKPT_CRASH_AFTER fault injection")
 
 
-def _timed_write(op: str, ckpt_dir: str, name: str, arrs) -> None:
-    t0 = time.perf_counter()
-    _write_part(ckpt_dir, name, arrs)
-    CKPT_STATS["write"].append((op, name, len(arrs[0]),
-                                time.perf_counter() - t0))
-
-
 def from_reads_checkpointed(read_files, k: int, ckpt_dir: str, device,
                             chunk: Optional[int] = None, group=None):
     """KmerTable.from_reads on `device` with on-disk resume state in
@@ -171,7 +161,6 @@ def from_reads_checkpointed(read_files, k: int, ckpt_dir: str, device,
     from ..ops import kmers as K
     from ..ops.kernels import count_chunk_cuda
     from ..parallel.sharded import sharded_merge
-    from ..utils import log
     from .table import (KmerTable, ShardedCounter, TreeMerger, _to_host,
                         shard_merge)
 
@@ -190,75 +179,75 @@ def from_reads_checkpointed(read_files, k: int, ckpt_dir: str, device,
         os.makedirs(ckpt_dir, exist_ok=True)
         _clean_tmp(ckpt_dir)
     crash = _CrashHook()
-    t_resume = time.perf_counter()
+    with log.span("kq.ckpt.resume"):  # replay and reclaim
+        sizes = []
+        for p in read_files:
+            try:
+                sizes.append(os.path.getsize(p))
+            except OSError:
+                sizes.append(-1)
+        header = {"op": "header", "k": k, "chunk": chunk, "batch": batch,
+                  "files": [os.path.abspath(p) for p in read_files],
+                  "sizes": sizes}
 
-    sizes = []
-    for p in read_files:
-        try:
-            sizes.append(os.path.getsize(p))
-        except OSError:
-            sizes.append(-1)
-    header = {"op": "header", "k": k, "chunk": chunk, "batch": batch,
-              "files": [os.path.abspath(p) for p in read_files],
-              "sizes": sizes}
+        barrier()  # the directory exists
+        recs = _read_manifest(ckpt_dir)
+        fresh = not recs
+        if recs:
+            h = recs[0]
+            stale = {kk: vv for kk, vv in h.items() if kk != "op"} != \
+                {kk: vv for kk, vv in header.items() if kk != "op"}
+            if h.get("op") != "header" or stale:
+                raise RuntimeError(
+                    f"checkpoint dir {ckpt_dir} belongs to a different "
+                    "build (k/chunk/batch/files mismatch); remove it or "
+                    "point KREEQ_TPU_BUILD_CKPT elsewhere")
+            recs = recs[1:]
+        # every rank has read the manifest before rank 0 writes
+        barrier()
+        if fresh and writer:
+            _append_manifest(ckpt_dir, header)
 
-    barrier()  # the directory exists
-    recs = _read_manifest(ckpt_dir)
-    fresh = not recs
-    if recs:
-        h = recs[0]
-        stale = {kk: vv for kk, vv in h.items() if kk != "op"} != \
-            {kk: vv for kk, vv in header.items() if kk != "op"}
-        if h.get("op") != "header" or stale:
-            raise RuntimeError(
-                f"checkpoint dir {ckpt_dir} belongs to a different "
-                "build (k/chunk/batch/files mismatch); remove it or "
-                "point KREEQ_TPU_BUILD_CKPT elsewhere")
-        recs = recs[1:]
-    barrier()  # every rank has read the manifest before rank 0 writes
-    if fresh and writer:
-        _append_manifest(ckpt_dir, header)
-
-    # replay: live part set + chunks already consumed + name counter
-    live: dict[str, int] = {}  # name -> rows
-    chunks_done = 0
-    seq = 0
-    stream_done = False
-    for r in recs:
-        if r["op"] == "part":
-            live[r["name"]] = r["rows"]
-            chunks_done += r["chunks"]
-            seq += 1
-        elif r["op"] == "merge":
-            for name in r["ins"]:
-                live.pop(name, None)
-            live[r["out"]] = r["rows"]
-            seq += 1
-        elif r["op"] == "eof":
-            stream_done = True
-    if recs:
-        log.verbose(
-            f"build checkpoint: resuming with {len(live)} parts, "
-            f"{chunks_done} chunks done, stream_done={stream_done}")
-    if recs and writer:
-        # reclaim orphans: files of parts already consumed by a recorded
-        # merge (death between record and delete) and unrecorded merge
-        # outputs (death between write and record; they are re-created
-        # atomically)
-        keep = {f"{name}.{field}.npy" for name in live for field in _ARRS}
-        for f in os.listdir(ckpt_dir):
-            if (f.endswith(".npy") and not f.startswith(".")
-                    and f not in keep):
-                try:
-                    os.remove(os.path.join(ckpt_dir, f))
-                except OSError:
-                    pass
-    CKPT_STATS["resume_s"] = time.perf_counter() - t_resume
+        # replay: live part set + chunks already consumed + name counter
+        live: dict[str, int] = {}  # name -> rows
+        chunks_done = 0
+        seq = 0
+        stream_done = False
+        for r in recs:
+            if r["op"] == "part":
+                live[r["name"]] = r["rows"]
+                chunks_done += r["chunks"]
+                seq += 1
+            elif r["op"] == "merge":
+                for name in r["ins"]:
+                    live.pop(name, None)
+                live[r["out"]] = r["rows"]
+                seq += 1
+            elif r["op"] == "eof":
+                stream_done = True
+        if recs:
+            log.verbose(
+                f"build checkpoint: resuming with {len(live)} parts, "
+                f"{chunks_done} chunks done, stream_done={stream_done}")
+        if recs and writer:
+            # reclaim orphans: files of parts already consumed by a
+            # recorded merge (death between record and delete) and
+            # unrecorded merge outputs (death between write and record;
+            # they are re-created atomically)
+            keep = {f"{name}.{field}.npy" for name in live
+                    for field in _ARRS}
+            for f in os.listdir(ckpt_dir):
+                if (f.endswith(".npy") and not f.startswith(".")
+                        and f not in keep):
+                    try:
+                        os.remove(os.path.join(ckpt_dir, f))
+                    except OSError:
+                        pass
 
     def record_part(name: str, arrs, nchunks: int) -> None:
         rows = len(arrs[0])
         if writer:
-            _timed_write("part", ckpt_dir, name, arrs)
+            _write_part(ckpt_dir, name, arrs)
             _append_manifest(ckpt_dir, {"op": "part", "name": name,
                                         "rows": rows, "chunks": nchunks})
         barrier()
@@ -323,7 +312,7 @@ def from_reads_checkpointed(read_files, k: int, ckpt_dir: str, device,
         name = f"m{seq:05d}"
         seq += 1
         if writer:
-            _timed_write("merge", ckpt_dir, name, out)
+            _write_part(ckpt_dir, name, out)
             _append_manifest(ckpt_dir, {"op": "merge", "out": name,
                                         "ins": [a, b], "rows": len(out[0])})
             # inputs are dead only once the merge record is durable

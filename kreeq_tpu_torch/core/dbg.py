@@ -25,8 +25,9 @@ import torch
 from ..config import UserInput
 from ..constants import BAD
 from ..io.sequence import Genome
+from ..utils import log
 from ..utils.fmt import cpp_double
-from .table import OOC_STATS, KmerTable, u32_bits, widen_u32
+from .table import KmerTable, u32_bits, widen_u32
 
 # windows whose track copies may be in flight before the host waits for
 # the oldest: the card computes the next windows meanwhile
@@ -235,8 +236,8 @@ class DBG:
                     tab = table.device_arrays(w)
                     index = table.window_index(w)
                     sel = probe_select_cuda(*tab, keys, ctx, index)
-                    OOC_STATS["probe"].append(("probe_select", w,
-                                               keys.shape[0]))
+                    log.count("ooc.probe_select")
+                    log.count("ooc.queries", keys.shape[0])
                     del tab, index  # the next window uploads into room
                     sl = slice(lead, lead + (b - a))
                     found = sel[0][sl].cpu().numpy()

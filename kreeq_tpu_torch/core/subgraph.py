@@ -22,14 +22,12 @@ become the port's biased int64 only at the device boundary.
 from __future__ import annotations
 
 import sys
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..constants import ITOC, keys_from_u64, keys_to_u64
-from ..device import elapsed_ms, stamp
 from ..io.sequence import Edge, Genome
 from ..native.subnode import get_module
 from ..ops.frontier import survivors
@@ -39,13 +37,6 @@ from .fibheap import FibonacciHeap
 from .gfastats import report_stats_lines
 from .keys import (canonical, key_to_seq, mask, next_key_bw, next_key_fw,
                    revcomp_key)
-
-# what the searches did, until the caller resets it: extracted seed
-# nodes and how many of them are in the DB (blue); per traversal round
-# (new nodes, survivor-scan ms, probe ms); best-first boundary sources
-# and the seconds of their host search
-SUBGRAPH_STATS = {"seed": 0, "blue": 0, "rounds": [], "sources": 0,
-                  "search_s": 0.0}
 
 
 class SubNode:
@@ -252,19 +243,16 @@ def traversal(dbg, sub: Dict[int, SubNode]) -> None:
     for _ in range(dbg.ui.resolved_kmer_depth()):
         if fkeys.shape[0] == 0:
             break
-        t0 = stamp(dev)
         vals, _flat = survivors(fkeys, ffw, fbw, members, k, 0, dedup=True)
-        t1 = stamp(dev)
         if vals.shape[0] == 0:
             break
         found, cov, fw, bw = table.probe_device(vals)
-        t2 = stamp(dev)
         hit = torch.nonzero(found).squeeze(1)
         fkeys, ffw, fbw = vals[hit], fw[hit], bw[hit]
         rows = torch.cat([fkeys[:, None], cov[hit][:, None], ffw, fbw],
                          1).cpu().numpy()
-        SUBGRAPH_STATS["rounds"].append(
-            (rows.shape[0], elapsed_ms(t0, t1), elapsed_ms(t1, t2)))
+        log.count("subgraph.rounds")
+        log.count("subgraph.round_nodes", rows.shape[0])
         # new keys only, so updating sub keeps its order and appends
         # the round's nodes in scan order
         _bulk_nodes(sub, keys_to_u64(rows[:, 0]), rows[:, 2:6],
@@ -287,15 +275,15 @@ def best_first(dbg, sub: Dict[int, SubNode]) -> Dict[int, SubNode]:
     candidates: Dict[int, SubNode] = {}
     copy: Dict[int, SubNode] = {}
     need = _boundary_sources(dbg, sub)
-    t0 = time.perf_counter()
-    for idx, (key, node) in enumerate(sub.items()):
-        if need[idx]:
-            _explored, discovered = _dijkstra(dbg, sub, key, node, cache)
-            for dk, dn in discovered.items():
-                candidates.setdefault(dk, dn)
-        copy[key] = node
-    SUBGRAPH_STATS["sources"] += int(need.sum())
-    SUBGRAPH_STATS["search_s"] += time.perf_counter() - t0
+    log.count("subgraph.sources", int(need.sum()))
+    with log.span("kq.subgraph.search"):
+        for idx, (key, node) in enumerate(sub.items()):
+            if need[idx]:
+                _explored, discovered = _dijkstra(dbg, sub, key, node,
+                                                  cache)
+                for dk, dn in discovered.items():
+                    candidates.setdefault(dk, dn)
+            copy[key] = node
     for dk, dn in candidates.items():
         copy.setdefault(dk, dn)
     return copy
@@ -668,8 +656,8 @@ def run_subgraph(dbg, out=None) -> None:
         return
     with log.phase("extract"):
         sub = extract_subgraph(dbg)
-    SUBGRAPH_STATS["seed"] += len(sub)
-    SUBGRAPH_STATS["blue"] += sum(1 for n in sub.values() if n.color == 1)
+    log.count("subgraph.seed", len(sub))
+    log.count("subgraph.blue", sum(1 for n in sub.values() if n.color == 1))
     with log.phase("search"):
         sub = search_graph(dbg, sub)
     with log.phase("prune"):

@@ -36,7 +36,6 @@ shards over its devices.
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -58,13 +57,6 @@ _DIR_BYTES = 8 * ((1 << 22) + 1)
 # device memory assumed where there is no card: the JAX package's
 # fallback
 _CPU_MEMORY = 16 << 30
-
-# what the out-of-core path did, until the caller clears the lists
-# (the window uploads and directory builds are the spans kq.ooc.upload
-# and kq.ooc.index, utils/log.py):
-#   probe      - (kernel, window, queries) per windowed probe
-#   host_merge - (rows a, rows b, rows out, seconds) per host merge
-OOC_STATS = {"probe": [], "host_merge": []}
 
 
 def max_device_rows(device: torch.device) -> int:
@@ -205,13 +197,14 @@ def parallel_host_merge(a, b):
     return tuple(np.concatenate([o[i] for o in outs]) for i in range(4))
 
 
-def _timed_host_merge(a, b):
-    t0 = time.perf_counter()
-    out = parallel_host_merge(a, b)
-    dt = time.perf_counter() - t0
-    OOC_STATS["host_merge"].append((len(a[0]), len(b[0]), len(out[0]), dt))
-    log.verbose(f"host merge {len(a[0])}+{len(b[0])} -> {len(out[0])} rows "
-                f"in {dt:.2f}s")
+def _host_merge(a, b):
+    """parallel_host_merge as the span kq.build.host_merge (counters
+    build.host_merge_rows_in, build.host_merge_rows_out)."""
+    with log.span("kq.build.host_merge"):
+        out = parallel_host_merge(a, b)
+    log.count("build.host_merge_rows_in", len(a[0]) + len(b[0]))
+    log.count("build.host_merge_rows_out", len(out[0]))
+    log.verbose(f"host merge {len(a[0])}+{len(b[0])} -> {len(out[0])} rows")
     return out
 
 
@@ -318,8 +311,8 @@ class TreeMerger:
             if int(stored[4]) + fresh[0].shape[0] > _host_merge_threshold(
                     self.device):
                 log.count("build.host_merges")
-                out = _timed_host_merge(_to_host(self._trim(stored)),
-                                        _to_host(self._trim(fresh)))
+                out = _host_merge(_to_host(self._trim(stored)),
+                                  _to_host(self._trim(fresh)))
                 return (*out, len(out[0]))
             log.count("build.device_merges")
             a = _to_device(self._trim(stored), self.device)
@@ -677,9 +670,9 @@ class KmerTable:
 
         tab = self.device_arrays(window)
         index = self.window_index(window)
-        out = probe_sorted_cuda(*tab, qkeys, index)
-        OOC_STATS["probe"].append(("probe_sorted", window, qkeys.shape[0]))
-        return out
+        log.count("ooc.probe_sorted")
+        log.count("ooc.queries", qkeys.shape[0])
+        return probe_sorted_cuda(*tab, qkeys, index)
 
     # -- probing -----------------------------------------------------------
 
@@ -782,7 +775,7 @@ class KmerTable:
             return self.merge_sharded(other, group)
         dev = self.device
         if len(self) + len(other) > _host_merge_threshold(dev):
-            out = _timed_host_merge(self.host_arrays(), other.host_arrays())
+            out = _host_merge(self.host_arrays(), other.host_arrays())
             return KmerTable.placed(self.k, out, dev)
 
         def dev_arrays(t):

@@ -40,7 +40,6 @@ in batches (`_probe_segments`), so each window uploads once per pass.
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -53,11 +52,6 @@ from .keys import canonical, key_to_seq, next_key_bw, next_key_fw
 from .table import u32_bits, widen_u32
 
 SNV, INS, DEL, COM = "SNV", "INS", "DEL", "COM"
-
-# branch points searched (on the host or the card) and the seconds
-# those searches took, summed over dbg_to_variants calls until the
-# caller resets them
-SEARCH_STATS = {"branch_points": 0, "search_s": 0.0}
 
 
 @dataclass
@@ -548,10 +542,8 @@ def _search_on_card(dbg, lo: int, kcount: int, k: int, max_span: int,
     Returns [table lookups, cache hits, records found]."""
     from ..ops.kernels import variant_search_cuda
 
-    t0 = time.perf_counter()
-    n = int(rows.shape[0])
     stats = [0, 0, 0]
-    if n:
+    if rows.shape[0]:
         table = dbg.table
         recs, bases, counts = variant_search_cuda(
             table.keys, table.fw, table.bw, keys, isfw, fws, bws, rows, lo,
@@ -560,8 +552,6 @@ def _search_on_card(dbg, lo: int, kcount: int, k: int, max_span: int,
         stats[:2] = counts.sum(0).tolist()
         variants.add(recs.cpu().numpy(), bases.cpu().numpy())
         stats[2] = int(recs.shape[0])
-    SEARCH_STATS["branch_points"] += n
-    SEARCH_STATS["search_s"] += time.perf_counter() - t0
     return stats
 
 
@@ -575,7 +565,6 @@ def _search_from_scan(dbg, lo: int, kcount: int, k: int, max_span: int,
     to lo; recs: (fw, bw, cov) of each branch point's table row.  The
     paths join `variants`, a PathGroups, packed as the kernel packs
     them.  Returns [table lookups, cache hits, records found]."""
-    t0 = time.perf_counter()
     stats = [0, 0, 0]
     nloc = all_keys.shape[0]           # buffer-relative; abs = rel + lo
 
@@ -663,8 +652,6 @@ def _search_from_scan(dbg, lo: int, kcount: int, k: int, max_span: int,
     variants.add(np.array(packed, np.int64).reshape(-1, 5),
                  np.frombuffer("".join(seqs).encode().translate(_CODES),
                                np.uint8))
-    SEARCH_STATS["branch_points"] += int(search_rel.size)
-    SEARCH_STATS["search_s"] += time.perf_counter() - t0
     return stats
 
 

@@ -24,7 +24,6 @@ replaced.
 from __future__ import annotations
 
 import os
-import time
 from typing import Optional, Tuple
 
 import torch
@@ -80,19 +79,3 @@ def collective_backend(device: torch.device) -> str:
     if device.type != "cuda":
         return "gloo"
     return "nccl" if local_ranks() <= torch.cuda.device_count() else "gloo"
-
-
-def stamp(device: torch.device):
-    """A point in time on the device's own clock: a recorded CUDA event
-    on the card, the host clock elsewhere."""
-    if device.type == "cuda":
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-    return time.perf_counter()
-
-
-def elapsed_ms(a, b) -> float:
-    """Milliseconds between two stamp()s; on the card the later event
-    must have completed."""
-    return (b - a) * 1e3 if isinstance(a, float) else a.elapsed_time(b)

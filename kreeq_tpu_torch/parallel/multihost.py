@@ -173,14 +173,13 @@ def build_table_distributed(read_files, k: int, device,
 
 def build_report(device, group, **extra) -> dict:
     """This rank's view of a distributed build: its rank, backend and
-    device, `extra`, the kernels' launches so far, peak device memory,
-    and what the collectives did (sharded.stats_report)."""
+    device, `extra`, the kernels' launches so far and peak device
+    memory.  What the collectives did is in the job's record (spans
+    kq.shard.*, counters shard.*; --profile prints them)."""
     from ..ops.kernels import LAUNCHES
-    from .sharded import stats_report
 
     peak = (torch.cuda.max_memory_allocated(device) / 2**30
             if device.type == "cuda" else None)
     return {"rank": dist.get_rank(group), "ranks": dist.get_world_size(group),
             "backend": dist.get_backend(group), "device": str(device),
-            **extra, "launches": dict(LAUNCHES), "peak_gib": peak,
-            **stats_report(device)}
+            **extra, "launches": dict(LAUNCHES), "peak_gib": peak}

@@ -22,8 +22,9 @@ tensors on the card, with NCCL or with gloo (gloo's all_to_all_single,
 all_gather and all_reduce took CUDA tensors on the H100's torch build,
 chip_smoke phase 11), and CPU tensors on the CPU with gloo.  The one
 exception is a gather too large for the device (`gather_table`), which
-fills host memory.  Every exchange and gather is recorded in
-SHARD_STATS (`stats_report`).
+fills host memory.  Every exchange and gather is a span of the open
+job (kq.shard.route, kq.shard.back, kq.shard.gather; utils/log.py) with
+counters of its rows and bytes.
 """
 
 from __future__ import annotations
@@ -33,24 +34,13 @@ import torch
 import torch.distributed as dist
 
 from ..constants import KEY_BIAS, SENTINEL
-from ..device import stamp
+from ..utils import log
 
 # Fibonacci multiplicative mix of the JAX package's owner_of: canonical
 # keys are skewed in their low bits, so `key % n` would load shards
 # unevenly; the mix spreads them
 _OWNER_MIX = 0x9E3779B97F4A7C15
 _OWNER_MIX_I64 = _OWNER_MIX - (1 << 64)  # the same bits as an int64
-
-# what the collectives did, until stats_report() clears the lists:
-#   route  - (records sent, bytes sent, start, end) per route(): its
-#            sizes exchange and the all_to_all of keys and payload
-#   back   - (rows sent, bytes sent, start, end) per Route.back()
-#   gather - (rows gathered, bytes gathered, start, end, into host
-#            memory) per gather_table(): all_gather_rows on the
-#            device, or _gather_rows_host
-# start and end are device.stamp()s: CUDA events on the card (read them
-# after a synchronize), host clock readings elsewhere
-SHARD_STATS = {"route": [], "back": [], "gather": []}
 
 
 def group_size(group) -> int:
@@ -95,11 +85,12 @@ class Route:
     def back(self, x: torch.Tensor) -> torch.Tensor:
         """Rows of answers, one per received record in received order,
         returned to the records' ranks and put in their original
-        order."""
-        t0 = stamp(x.device)
-        y = _exchange(x, self.recv, self.send, self.group)
-        SHARD_STATS["back"].append((x.shape[0], x.nbytes, t0,
-                                    stamp(x.device)))
+        order: the span kq.shard.back (counters shard.back_rows,
+        shard.back_bytes)."""
+        with log.span("kq.shard.back"):
+            y = _exchange(x, self.recv, self.send, self.group)
+        log.count("shard.back_rows", x.shape[0])
+        log.count("shard.back_bytes", x.nbytes)
         out = torch.empty_like(y)
         out[self.order] = y
         return out
@@ -120,17 +111,20 @@ def route(keys: torch.Tensor, payload, group):
     with uneven splits.
 
     Returns (keys received, payload tensors received, Route); received
-    records come by sending rank, each rank's in its sending order."""
+    records come by sending rank, each rank's in its sending order.
+    The exchanges are the span kq.shard.route (counters
+    shard.route_rows, shard.route_bytes: what this rank sent)."""
     order, send_t = split(keys, group_size(group))
     recv_t = torch.empty_like(send_t)
-    t0 = stamp(keys.device)
-    dist.all_to_all_single(recv_t, send_t, group=group)
-    send, recv = send_t.tolist(), recv_t.tolist()
-    rkeys = _exchange(keys[order], send, recv, group)
-    rpay = tuple(_exchange(p[order], send, recv, group) for p in payload)
-    SHARD_STATS["route"].append((
-        keys.shape[0], keys.nbytes + sum(p.nbytes for p in payload), t0,
-        stamp(keys.device)))
+    with log.span("kq.shard.route"):
+        dist.all_to_all_single(recv_t, send_t, group=group)
+        send, recv = send_t.tolist(), recv_t.tolist()
+        rkeys = _exchange(keys[order], send, recv, group)
+        rpay = tuple(_exchange(p[order], send, recv, group)
+                     for p in payload)
+    log.count("shard.route_rows", keys.shape[0])
+    log.count("shard.route_bytes",
+              keys.nbytes + sum(p.nbytes for p in payload))
     return rkeys, rpay, Route(order, send, recv, group)
 
 
@@ -231,18 +225,13 @@ def all_gather_rows(keys: torch.Tensor, vals: torch.Tensor, group,
     keys int64 [m] and vals [m, c] of this rank, `sizes` every rank's m
     (_sizes): all_gather of the rows padded to the largest."""
     n = group_size(group)
-    dev = keys.device
     pad = max(sizes) - keys.shape[0]
     kpad = torch.cat([keys, keys.new_full((pad,), SENTINEL)])
     vpad = torch.cat([vals, vals.new_zeros((pad, *vals.shape[1:]))])
     ks = [torch.empty_like(kpad) for _ in range(n)]
     vs = [torch.empty_like(vpad) for _ in range(n)]
-    t0 = stamp(dev)
     dist.all_gather(ks, kpad, group=group)
     dist.all_gather(vs, vpad, group=group)
-    SHARD_STATS["gather"].append((sum(sizes),
-                                  n * (kpad.nbytes + vpad.nbytes), t0,
-                                  stamp(dev), False))
     return (torch.cat([x[:s] for x, s in zip(ks, sizes)]),
             torch.cat([x[:s] for x, s in zip(vs, sizes)]))
 
@@ -265,7 +254,6 @@ def _gather_rows_host(keys: torch.Tensor, vals: torch.Tensor, group,
            torch.empty((total, *vals.shape[1:]), dtype=vals.dtype,
                        pin_memory=nccl))
     me = dist.get_rank(group)
-    t0 = stamp(device)
     base = 0
     for s, m in enumerate(sizes):
         src = dist.get_global_rank(group, s)
@@ -285,8 +273,6 @@ def _gather_rows_host(keys: torch.Tensor, vals: torch.Tensor, group,
                 if s != me:
                     dst.copy_(buf)
         base += m
-    SHARD_STATS["gather"].append((total, out[0].nbytes + out[1].nbytes, t0,
-                                  stamp(device), True))
     return out
 
 
@@ -301,7 +287,9 @@ def gather_table(part, group, device, sort: bool):
     is gathered into host memory (_gather_rows_host) and sorted there,
     as the JAX drain concatenates and sorts on the host, and comes back
     as host arrays, which KmerTable.placed keeps on the host above the
-    cap."""
+    cap.  The gather is the span kq.shard.gather (counters
+    shard.gather_rows, shard.gather_bytes: the whole gathered;
+    shard.host_gathers)."""
     from ..core.table import (device_gather_rows, part_to_rows,
                               rows_to_host_part, rows_to_part)
 
@@ -309,12 +297,16 @@ def gather_table(part, group, device, sort: bool):
     if not sum(sizes):
         return None
     host = sum(sizes) > device_gather_rows(device)
-    if host:
-        keys, vals = _gather_rows_host(*part_to_rows(part, "cpu"), group,
-                                       sizes, device)
-    else:
-        keys, vals = all_gather_rows(*part_to_rows(part, device), group,
-                                     sizes)
+    with log.span("kq.shard.gather"):
+        if host:
+            keys, vals = _gather_rows_host(*part_to_rows(part, "cpu"),
+                                           group, sizes, device)
+        else:
+            keys, vals = all_gather_rows(*part_to_rows(part, device),
+                                         group, sizes)
+    log.count("shard.gather_rows", sum(sizes))
+    log.count("shard.gather_bytes", keys.nbytes + vals.nbytes)
+    log.count("shard.host_gathers", int(host))
     if sort:
         keys, order = torch.sort(keys)
         vals = vals[order]
@@ -360,23 +352,3 @@ def sharded_merge(a, b, group, device):
         mine = TreeMerger._trim(TreeMerger(device).merge(
             (*sa, len(sa[0])), (*sb, len(sb[0]))))[:4]
     return gather_table(mine, group, device, sort=False)
-
-
-def stats_report(device) -> dict:
-    """SHARD_STATS since the last call, summed: for each of route, back
-    and gather, the calls, rows, bytes and milliseconds, and for gather
-    the calls that gathered into host memory; clears it."""
-    from ..device import elapsed_ms
-
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    out = {}
-    for name, recs in SHARD_STATS.items():
-        out[name] = {"calls": len(recs),
-                     "rows": sum(r[0] for r in recs),
-                     "bytes": sum(r[1] for r in recs),
-                     "ms": sum(elapsed_ms(r[2], r[3]) for r in recs)}
-        if name == "gather":
-            out[name]["host_calls"] = sum(r[4] for r in recs)
-        recs.clear()
-    return out

@@ -100,19 +100,22 @@ def test_checkpointed_build_matches_plain(tmp_path, monkeypatch, k):
 @pytest.mark.parametrize("crash_after", [1, 2, 3])
 def test_crash_resume_matches_jax(tmp_path, monkeypatch, crash_after):
     """Killed after every crash_after-th manifest append until it
-    finishes; parts above HOST_MERGE_ROWS merge on the host."""
-    from kreeq_tpu_torch.core.table import OOC_STATS
+    finishes; parts above HOST_MERGE_ROWS merge on the host.  The job
+    records a resume a build, and a write of each recorded part and
+    merge output."""
+    from kreeq_tpu_torch.utils import log
 
     k = 21
     monkeypatch.setenv("KREEQ_TPU_BUILD_CKPT_BATCH", "2")
     monkeypatch.setenv("KREEQ_TPU_HOST_MERGE_ROWS", "3000")
     rp = _mk_reads(tmp_path)
     dirs = {pkg: str(tmp_path / pkg) for pkg in ("jax", "port")}
-    OOC_STATS["host_merge"].clear()
-    got, attempts = _resume("port", rp, k, dirs["port"], crash_after)
+    with log.job() as rec:
+        got, attempts = _resume("port", rp, k, dirs["port"], crash_after)
     want, jax_attempts = _resume("jax", rp, k, dirs["jax"], crash_after)
     assert attempts == jax_attempts > 1
-    assert OOC_STATS["host_merge"]
+    assert rec["spans"]["kq.build.host_merge"]["calls"] >= 1
+    assert rec["spans"]["kq.ckpt.resume"]["calls"] == attempts
     _assert_same(got, want)
     _same_dir(dirs["port"], dirs["jax"])
     # every chunk is in exactly one recorded part: no batch was counted
@@ -120,6 +123,9 @@ def test_crash_resume_matches_jax(tmp_path, monkeypatch, crash_after):
     with open(os.path.join(dirs["port"], "manifest.jsonl")) as fh:
         recs = [json.loads(line) for line in fh]
     eof = [r for r in recs if r["op"] == "eof"]
+    written = [r for r in recs if r["op"] in ("part", "merge")]
+    assert rec["spans"]["kq.ckpt.write"]["calls"] == len(written)
+    assert rec["counters"]["ckpt.rows"] == sum(r["rows"] for r in written)
     assert len(eof) == 1
     assert sum(r["chunks"] for r in recs if r["op"] == "part") == \
         eof[0]["chunks"] > 4

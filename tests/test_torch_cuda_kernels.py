@@ -803,6 +803,7 @@ def test_one_rank_build_above_cap_gathers_on_host(cuda, one_rank, tmp_path,
     from kreeq_tpu_torch.core.table import KmerTable
     from kreeq_tpu_torch.parallel import sharded
     from kreeq_tpu_torch.parallel.multihost import build_table_distributed
+    from kreeq_tpu_torch.utils import log
 
     rng = np.random.default_rng(6)
     genome = "".join(rng.choice(list("ACGT"), 20_000))
@@ -812,11 +813,11 @@ def test_one_rank_build_above_cap_gathers_on_host(cuda, one_rank, tmp_path,
     want = KmerTable.from_reads([str(reads)], 21, cuda, chunk=1 << 14)
     monkeypatch.setenv("KREEQ_TPU_MAX_TABLE_ROWS", "4000")
     monkeypatch.setattr(sharded, "_HOST_GATHER_STEP", 1000)
-    sharded.stats_report(cuda)
-    got = build_table_distributed([str(reads)], 21, cuda, chunk=1 << 14,
-                                  group=one_rank)
-    gather = sharded.stats_report(cuda)["gather"]
-    assert (gather["calls"], gather["host_calls"]) == (1, 1)
+    with log.job() as rec:
+        got = build_table_distributed([str(reads)], 21, cuda,
+                                      chunk=1 << 14, group=one_rank)
+    assert (rec["spans"]["kq.shard.gather"]["calls"],
+            rec["counters"]["shard.host_gathers"]) == (1, 1)
     assert got.on_host and len(want) > 10_000
     for g, w in zip(got.to_numpy(), want.to_numpy()):
         assert g.dtype == w.dtype and np.array_equal(g, w)

@@ -164,12 +164,28 @@ def test_two_ranks_match_single_process_jax(tmp_path, monkeypatch, inputs,
         assert not os.path.exists(tmp_path / "rank1" / name)
 
 
+def _profile(err: str):
+    """({span: calls}, {counter: n}) of the job that --profile printed
+    to `err`."""
+    spans, counters, part = {}, {}, ""
+    for line in err.splitlines():
+        f = line.split()
+        if line.startswith("==="):
+            part = line
+        elif "spans of job" in part and f and f[0].startswith("kq."):
+            spans[f[0]] = int(f[-3])  # name, parent, calls, total, self
+        elif part == "=== counters ===" and len(f) == 2:
+            counters[f[0]] = int(f[1])
+    return spans, counters
+
+
 def test_two_ranks_verbose_names_backend_and_build(tmp_path, inputs):
     """--verbose: each rank logs its device and backend (gloo on the
-    CPU), and its share of the distributed build; stdout as without."""
+    CPU), and its share of the distributed build, and --profile the
+    job's collectives; stdout as without."""
     files, asm = inputs
     argv = ["kreeq", "validate", "-f", asm, "-r", *files, "-k", "17"]
-    runs = _launch(tmp_path, argv + ["--verbose"], {})
+    runs = _launch(tmp_path, argv + ["--verbose", "--profile"], {})
     for r, (rc, _out, err) in enumerate(runs):
         assert rc == 0, err.decode()
         err = err.decode()
@@ -179,8 +195,10 @@ def test_two_ranks_verbose_names_backend_and_build(tmp_path, inputs):
         rep = json.loads(line.split("distributed build ", 1)[1])
         # rank 0 has files 0 and 2 (2 chunks), rank 1 file 1 (1 chunk)
         assert (rep["rank"], rep["chunks"], rep["rounds"]) == (r, 2 - r, 2)
-        assert rep["route"]["calls"] == 2 and rep["gather"]["calls"] == 1
-        assert rep["gather"]["rows"] == rep["rows"] > 0
+        spans, counters = _profile(err)
+        assert spans["kq.shard.route"] == 2 and spans["kq.shard.gather"] == 1
+        assert counters["shard.gather_rows"] == rep["rows"] > 0
+        assert counters["shard.host_gathers"] == 0
     assert runs[1][1] == b""
 
 

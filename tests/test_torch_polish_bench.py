@@ -60,12 +60,10 @@ def test_draft_region_keeps_one_region(tmp_path):
 
 
 def test_vcf_job_spans_and_counters(tmp_path, cpu):
-    from kreeq_tpu_torch.core.variants import SEARCH_STATS
     from kreeq_tpu_torch.utils import log
 
     inputs = make(tmp_path, 4200002111)
     port_vcf(tmp_path, inputs, 21)  # the DB, and a first job
-    before = SEARCH_STATS["branch_points"]
     got = port_vcf(tmp_path, inputs, 21)
     job = log.jobs[-1]
     sp, c = job["spans"], job["counters"]
@@ -73,8 +71,7 @@ def test_vcf_job_spans_and_counters(tmp_path, cpu):
     assert sp["kq.variants.search"]["parent"] == "phase:variants"
     assert sp["kq.variants.search"]["calls"] == sp["kq.variants.scan"][
         "calls"] == 1
-    assert c["variants.branch_points"] == (SEARCH_STATS["branch_points"]
-                                           - before) > 0
+    assert c["variants.branch_points"] > 0
     assert c["variants.paths"] == sum(
         1 for line in got.splitlines() if not line.startswith(b"#"))
     assert c["variants.positions"] == DRAFT[1] - DRAFT[0] - 21 + 1

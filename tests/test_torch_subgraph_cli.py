@@ -64,7 +64,11 @@ def _read_text(path):
 ])
 def test_subgraph_matches_jax(tmp_path, db, both, ext, opts):
     """ext "" writes no file, "stdout" is `-o gfa`: the GFA on stdout
-    after the two summaries, with no DB summary."""
+    after the two summaries, with no DB summary.  The port's job counts
+    the seed nodes and the traversal's rounds or the best-first's
+    boundary sources."""
+    from kreeq_tpu_torch.utils import log
+
     path, ap, bp = db
     opts = [bp if o == "SPANS" else o for o in opts]
     outs = []
@@ -79,6 +83,16 @@ def test_subgraph_matches_jax(tmp_path, db, both, ext, opts):
         outs.append((stdout, _read_text(out) if ext not in ("", "stdout")
                      else None))
     assert outs[1] == outs[0]
+    rec = log.jobs[-1]  # the port's
+    c = rec["counters"]
+    assert c["subgraph.seed"] >= c["subgraph.blue"] > 0
+    if "traversal" in opts:
+        assert c["subgraph.rounds"] > 0 and c["subgraph.round_nodes"] > 0
+        assert "kq.subgraph.search" not in rec["spans"]
+    else:
+        assert rec["spans"]["kq.subgraph.search"]["calls"] == 1
+        assert c["subgraph.seed"] >= c["subgraph.sources"] > 0
+        assert "subgraph.rounds" not in c
     stdout, gfa = outs[0]
     assert stdout.startswith("Subgraph summary statistics:")
     assert "+++Assembly summary+++" in stdout

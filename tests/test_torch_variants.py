@@ -320,7 +320,7 @@ def _variants(pkg, ap, rp, k=21, **opts):
 def test_dbg_to_variants_matches_jax(tmp_path, monkeypatch, window):
     """The same variants per segment as the JAX package, with window
     seams on and near the planted errors (cap 256: ~23 windows)."""
-    from kreeq_tpu_torch.core.variants import SEARCH_STATS
+    from kreeq_tpu_torch.utils import log
 
     if window:
         monkeypatch.setenv("KREEQ_TPU_VARIANTS_WINDOW", str(window))
@@ -328,11 +328,13 @@ def test_dbg_to_variants_matches_jax(tmp_path, monkeypatch, window):
         monkeypatch.delenv("KREEQ_TPU_VARIANTS_WINDOW", raising=False)
     ap, rp = _planted_6kbp(tmp_path)
     want = _variants("kreeq_tpu", ap, rp)
-    before = SEARCH_STATS["branch_points"]
-    got = _variants("kreeq_tpu_torch", ap, rp)
+    with log.job() as rec:
+        got = _variants("kreeq_tpu_torch", ap, rp)
     assert got == want
     assert sum(len(v) for v in want) >= 10  # the planted errors surfaced
-    assert SEARCH_STATS["branch_points"] > before
+    assert rec["counters"]["variants.branch_points"] > 0
+    assert rec["spans"]["kq.variants.search"]["calls"] \
+        == rec["spans"]["kq.variants.scan"]["calls"] > 0
 
 
 @pytest.mark.parametrize("k", [21, 32])

@@ -117,7 +117,7 @@ def test_build_and_union_with_host_merges_match_jax(tmp_path, both,
     """`validate -r -o x.kreeq` and `union` of two DBs with the merges
     above HOST_MERGE_ROWS on the host and the results above the cap:
     the same DB directories as the JAX package's."""
-    from kreeq_tpu_torch.core.table import OOC_STATS
+    from kreeq_tpu_torch.utils import log
 
     jax_run, run = both
     _caps(monkeypatch)
@@ -125,19 +125,24 @@ def test_build_and_union_with_host_merges_match_jax(tmp_path, both,
     for name, fn in (("jax", jax_run), ("port", run)):
         out = tmp_path / name
         out.mkdir()
-        OOC_STATS["host_merge"].clear()
         for seed in (0, 5):
             rp, _ap = _write_inputs(tmp_path, seed)
             _stdout(fn, ["kreeq", "validate", "-r", rp, "-k", str(k),
                          "-o", str(out / f"r{seed}.kreeq")])
-        if name == "port":  # the builds merged on the host
-            assert len(OOC_STATS["host_merge"]) >= 2
-        OOC_STATS["host_merge"].clear()
+            if name == "port":  # the build merged on the host
+                rec = log.jobs[-1]
+                merges = rec["spans"]["kq.build.host_merge"]["calls"]
+                assert merges == rec["counters"]["build.host_merges"] >= 1
+                assert rec["counters"]["build.host_merge_rows_in"] \
+                    >= rec["counters"]["build.host_merge_rows_out"] > 0
         stdout = _stdout(fn, ["kreeq", "union", "-d", str(out / "r0.kreeq"),
                               str(out / "r5.kreeq"), "-o",
                               str(out / "u.kreeq")])
         if name == "port":  # so did the union
-            assert len(OOC_STATS["host_merge"]) == 1
+            rec = log.jobs[-1]
+            assert rec["spans"]["kq.build.host_merge"]["calls"] == 1
+            assert rec["counters"]["build.host_merge_rows_in"] \
+                >= rec["counters"]["build.host_merge_rows_out"] > 0
         dbs.append((out, stdout))
     (want_dir, want_stdout), (got_dir, got_stdout) = dbs
     assert got_stdout == want_stdout and "Distinct kmers" in want_stdout
@@ -150,7 +155,7 @@ def test_windowed_validate_matches_jax(tmp_path, both, monkeypatch, k):
     """`-d db -f asm` against a windowed table: the QV table (sums
     path) and every track writer as the JAX package writes them under
     the same cap, and as the port writes them in core."""
-    from kreeq_tpu_torch.core.table import OOC_STATS
+    from kreeq_tpu_torch.utils import log
 
     jax_run, run = both
     rp, ap = _write_inputs(tmp_path, 20 + k)
@@ -164,17 +169,16 @@ def test_windowed_validate_matches_jax(tmp_path, both, monkeypatch, k):
         for name, fn in (("jax", jax_run), ("port", run)):
             if name == "jax" and not caps:
                 continue
-            OOC_STATS["probe"].clear()
-            stdouts = [_stdout(fn, ["kreeq", "validate", "-d", db, "-f",
-                                    ap])]
+            stdouts = []
             files = [str(tmp_path / f"{name}{int(caps)}.{ext}")
                      for ext in exts]
-            for out in files:
+            for argv in ([], *(["-o", out] for out in files)):
                 stdouts.append(_stdout(fn, ["kreeq", "validate", "-d", db,
-                                            "-f", ap, "-o", out]))
-            if name == "port" and caps:
-                wins = {w for _n, w, *_rest in OOC_STATS["probe"]}
-                assert len(wins) >= 3
+                                            "-f", ap, *argv]))
+                if name == "port" and caps:  # probed in its windows
+                    rec = log.jobs[-1]
+                    assert rec["spans"]["kq.ooc.upload"]["calls"] >= 3
+                    assert rec["counters"]["ooc.probe_select"] >= 3
             outs[name, caps] = stdouts, files
     want_stdouts, want_files = outs["jax", True]
     assert "Kreeq" in want_stdouts[0]

@@ -22,6 +22,7 @@ import torch.distributed as dist  # noqa: E402
 from kreeq_tpu_torch.constants import keys_to_u64  # noqa: E402
 from kreeq_tpu_torch.core.table import KmerTable  # noqa: E402
 from kreeq_tpu_torch.parallel import sharded  # noqa: E402
+from kreeq_tpu_torch.utils import log  # noqa: E402
 
 rank, ranks, port, work = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                            sys.argv[4])
@@ -47,36 +48,38 @@ def save(name, keys, cov, fw, bw):
 for job in jobs:
     name, kind = job["name"], job["kind"]
     os.environ.update(job.get("env", {}))
-    sharded.stats_report(cpu)
-    if kind == "count":
-        codes = torch.from_numpy(inputs[job["codes"]][rank])
-        keys, cov, fw, bw, n = sharded.sharded_count(codes, job["k"], group)
-        m = int(n)
-        save(name, keys[:m], cov[:m], fw[:m], bw[:m])
-    elif kind == "pipeline":
-        qfound, qcov, tot, miss, emiss = sharded.full_pipeline(
-            torch.from_numpy(inputs[job["reads"]][rank]),
-            torch.from_numpy(inputs[job["asm"]][rank]), job["k"], group,
-            job.get("cutoff", 0))
-        out[f"{name}.qfound"] = qfound.numpy()
-        out[f"{name}.qcov"] = qcov.numpy()
-        out[f"{name}.sums"] = np.array([tot, miss, emiss])
-    elif kind == "merge":
-        a, b = (KmerTable.from_numpy(job["k"], *(inputs[f"{t}.{f}"] for f in
-                                                  ("keys", "cov", "fw", "bw")),
-                                     cpu) for t in ("a", "b"))
-        got = a.merge_sharded(b, group)
-        save(name, *got.host_arrays())
-    elif kind == "from_reads":
-        got = KmerTable.from_reads(job["files"], job["k"], cpu,
-                                   chunk=job["chunk"], group=group)
-        save(name, *got.host_arrays())
-    else:
-        raise ValueError(kind)
+    with log.job() as rec:
+        if kind == "count":
+            codes = torch.from_numpy(inputs[job["codes"]][rank])
+            keys, cov, fw, bw, n = sharded.sharded_count(codes, job["k"],
+                                                         group)
+            m = int(n)
+            save(name, keys[:m], cov[:m], fw[:m], bw[:m])
+        elif kind == "pipeline":
+            qfound, qcov, tot, miss, emiss = sharded.full_pipeline(
+                torch.from_numpy(inputs[job["reads"]][rank]),
+                torch.from_numpy(inputs[job["asm"]][rank]), job["k"],
+                group, job.get("cutoff", 0))
+            out[f"{name}.qfound"] = qfound.numpy()
+            out[f"{name}.qcov"] = qcov.numpy()
+            out[f"{name}.sums"] = np.array([tot, miss, emiss])
+        elif kind == "merge":
+            a, b = (KmerTable.from_numpy(
+                job["k"], *(inputs[f"{t}.{f}"]
+                            for f in ("keys", "cov", "fw", "bw")), cpu)
+                    for t in ("a", "b"))
+            got = a.merge_sharded(b, group)
+            save(name, *got.host_arrays())
+        elif kind == "from_reads":
+            got = KmerTable.from_reads(job["files"], job["k"], cpu,
+                                       chunk=job["chunk"], group=group)
+            save(name, *got.host_arrays())
+        else:
+            raise ValueError(kind)
     # (gathers, of them into host memory) of the job
-    gather = sharded.stats_report(cpu)["gather"]
-    out[f"{name}.gathers"] = np.array([gather["calls"],
-                                       gather["host_calls"]])
+    out[f"{name}.gathers"] = np.array([
+        rec["spans"].get("kq.shard.gather", {"calls": 0})["calls"],
+        rec["counters"].get("shard.host_gathers", 0)])
     for var in job.get("env", {}):
         os.environ.pop(var)
 np.savez(os.path.join(work, f"out_{rank}.npz"), **out)
