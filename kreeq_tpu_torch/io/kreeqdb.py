@@ -32,8 +32,9 @@ reference binary via phmap_load's raw restore.
 Everything here is host numpy on the files' u64 keys: hashing,
 placement and `key % mapCount` work on u64, so keys cross to the port's
 int64 form only at the KmerTable boundary (KmerTable.to_numpy on write;
-keys_from_u64 on read, after which the rows are sorted on the table's
-device, or on the host for a table above the device's row cap).
+on read the native loader biases them as it parses, after which the
+rows are sorted on the table's device, or on the host for a table above
+the device's row cap).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..constants import keys_from_u64
+from ..constants import keys_from_u64, keys_to_u64
 from ..core.table import MAP_COUNT, KmerTable, max_device_rows
 from ..utils import log
 
@@ -58,9 +59,13 @@ SLOT_U32 = 48
 def parse_phmap(data: bytes, slot_size: int):
     """Yield (key, value_bytes) from a phmap parallel-map dump."""
     off = 0
+    if len(data) < 8:
+        raise ValueError("corrupt phmap archive")
     (subcnt,) = struct.unpack_from("<Q", data, off)
     off += 8
     for _ in range(subcnt):
+        if len(data) - off < 24:
+            raise ValueError("corrupt phmap archive")
         ver, size, cap = struct.unpack_from("<QQQ", data, off)
         off += 24
         if ver != PHMAP_VERSION:
@@ -68,6 +73,8 @@ def parse_phmap(data: bytes, slot_size: int):
         if size == 0:
             continue
         nctrl = cap + 17
+        if len(data) - off < nctrl + cap * slot_size + 8:
+            raise ValueError("corrupt phmap archive")
         ctrl = data[off:off + nctrl]
         off += nctrl
         for i in range(cap):
@@ -88,29 +95,32 @@ def read_index(db_path: str) -> Tuple[int, int]:
     return k, map_count
 
 
-def _read_map_file(path: str, wide: bool):
-    """(keys u64[n], vals u32[n,9]) from one archive file (native C++
-    parser when available, Python fallback otherwise); counters db.maps
-    and db.bytes."""
-    with open(path, "rb") as fh:
-        data = fh.read()
-    log.count("db.maps")
-    log.count("db.bytes", len(data))
-    from . import native_enabled
-
-    if native_enabled():
-        from ..native import parse_phmap as native_parse
-
-        out = native_parse(data, wide)
-        if out is not None:
-            return out
-    keys, vals = [], []
-    fmt = "<9I" if wide else "<9B"
-    for key, vb in parse_phmap(data, SLOT_U32 if wide else SLOT_U8):
-        keys.append(key)
-        vals.append(struct.unpack_from(fmt, vb))
-    return (np.array(keys, np.uint64),
-            np.array(vals, np.uint32).reshape(len(keys), 9))
+def _load_python(paths, hc_path):
+    """native.load_db's result from the pure-Python archive parser."""
+    keys, vals, tombstones, nbytes = [], [], [], 0
+    for path in paths:
+        with open(path, "rb") as fh:
+            data = fh.read()
+        nbytes += len(data)
+        for key, vb in parse_phmap(data, SLOT_U8):
+            if vb[8] == 255:  # the record lives in the hc map
+                tombstones.append(key)
+            else:
+                keys.append(key)
+                vals.append(vb[:9])
+    hc_vals = []
+    if hc_path:
+        with open(hc_path, "rb") as fh:
+            data = fh.read()
+        nbytes += len(data)
+        for key, vb in parse_phmap(data, SLOT_U32):
+            keys.append(key)
+            hc_vals.append(struct.unpack_from("<9I", vb))
+    hc_vals = np.array(hc_vals, np.uint32).reshape(-1, 9)
+    vals8 = np.frombuffer(b"".join(vals), np.uint8).reshape(-1, 9)
+    vals8 = np.concatenate([vals8, np.zeros(hc_vals.shape, np.uint8)])
+    return (keys_from_u64(np.array(keys, np.uint64)), vals8, hc_vals,
+            keys_from_u64(np.array(tombstones, np.uint64)), nbytes)
 
 
 def read_kreeq(db_path: str, device) -> KmerTable:
@@ -119,64 +129,66 @@ def read_kreeq(db_path: str, device) -> KmerTable:
     above max_device_rows(device) rows, on the host, and the table then
     stays there (KmerTable.host_form).
 
-    Spans: kq.db.parse (the index, and reading and parsing every map
-    file), kq.db.assemble (the concatenations, the tombstone check and
-    the key conversion; counter db.rows), kq.db.upload (the device
-    copies, the sort, the gather and the widening, or the host form's
-    sort and pinning)."""
+    Spans: kq.db.parse (the index, and every map file read and parsed
+    by native.load_db: keys biased, u8 counters, tombstones dropped;
+    counters db.maps, db.bytes), kq.db.assemble (the tombstones checked
+    against the hc map's keys; counters db.tombstones, db.rows), kq.db.upload (the keys' and the u8
+    counters' copies, the sort, the gather and the widening, the hc
+    map's counters placed; or the host form's widening, sort and
+    pinning)."""
+    from . import native_enabled
+    from ..native import load_db
+
     with log.span("kq.db.parse"):
         k, map_count = read_index(db_path)
-        maps = []
-        for m in range(map_count):
-            path = os.path.join(db_path, f".map.{m}.bin")
-            if os.path.exists(path):
-                maps.append(_read_map_file(path, wide=False))
-        hc_path = os.path.join(db_path, ".map.hc.bin")
-        hc = (_read_map_file(hc_path, wide=True) if os.path.exists(hc_path)
-              else None)
+        present = set(os.listdir(db_path))  # one call, not a stat a file
+        paths = [os.path.join(db_path, f".map.{m}.bin")
+                 for m in range(map_count) if f".map.{m}.bin" in present]
+        hc_path = (os.path.join(db_path, ".map.hc.bin")
+                   if ".map.hc.bin" in present else None)
+        loaded = load_db(paths, hc_path) if native_enabled() else None
+        if loaded is None:
+            loaded = _load_python(paths, hc_path)
+        keys, vals8, hc_vals, tombstones, nbytes = loaded
+        log.count("db.maps", len(paths) + (hc_path is not None))
+        log.count("db.bytes", nbytes)
     with log.span("kq.db.assemble"):
-        all_keys = []
-        all_vals = []
-        tombstones = []
-        maps.reverse()
-        while maps:  # each map's arrays are freed as it is split
-            keys, vals = maps.pop()
-            tomb = vals[:, 8] == 255  # value lives in the hc map
-            tombstones.append(keys[tomb])
-            all_keys.append(keys[~tomb])
-            all_vals.append(vals[~tomb])
-        hc_keys = np.zeros(0, np.uint64)
-        if hc is not None:
-            hc_keys, hc_vals = hc
-            all_keys.append(hc_keys)
-            all_vals.append(hc_vals)
-        keys = (np.concatenate(all_keys) if all_keys
-                else np.zeros(0, np.uint64))
-        vals = (np.concatenate(all_vals) if all_vals
-                else np.zeros((0, 9), np.uint32))
-        missing = np.setdiff1d(np.concatenate(tombstones)
-                               if tombstones else np.zeros(0, np.uint64),
-                               hc_keys)
+        n, n8 = keys.shape[0], keys.shape[0] - hc_vals.shape[0]
+        missing = np.setdiff1d(tombstones, keys[n8:])
         if missing.size:
             raise ValueError(
                 f"int32 map missing 255 value from int8 map: key "
-                f"{missing[0]}")
-        keys = keys_from_u64(keys)
-        log.count("db.rows", keys.shape[0])
+                f"{keys_to_u64(missing[:1])[0]}")
+        log.count("db.tombstones", tombstones.shape[0])
+        log.count("db.rows", n)
     with log.span("kq.db.upload"):
         # keys are unique, so any sort order of them is the table's order
-        if keys.shape[0] > max_device_rows(device):
+        if n > max_device_rows(device):
+            vals = vals8.astype(np.uint32)
+            vals[n8:] = hc_vals
             keys, order = torch.sort(torch.from_numpy(keys))
             vals = vals[order.numpy()]
             return KmerTable.host_form(k, keys.numpy(), vals[:, 8],
                                        vals[:, 0:4], vals[:, 4:8], device)
-        # counters cross as int32 bit patterns (u32 values) and widen
-        # there
-        keys, order = torch.sort(torch.from_numpy(keys).to(device))
-        vals = torch.from_numpy(vals.view(np.int32)).to(device)[order]
-        vals = vals.to(torch.int64) & 0xFFFFFFFF
-        return KmerTable(k, keys, vals[:, 8].contiguous(),
-                         vals[:, 0:4].contiguous(), vals[:, 4:8].contiguous())
+        # the u8 counters cross (9 B a row), are gathered by the sort
+        # order and widened there; the hc rows' exact counters then go
+        # to their places
+        keys = torch.from_numpy(keys).to(device)
+        skeys, order = torch.sort(keys)
+        hc_at = torch.searchsorted(skeys, keys[n8:])
+        del keys
+        rows = torch.from_numpy(vals8).to(device)[order]
+        del order
+        cov, fw, bw = (rows[:, c].to(torch.int64).contiguous()
+                       for c in (8, slice(0, 4), slice(4, 8)))
+        del rows
+        if n > n8:
+            hc = torch.from_numpy(hc_vals.view(np.int32)).to(device)
+            hc = hc.to(torch.int64) & 0xFFFFFFFF
+            cov[hc_at] = hc[:, 8]
+            fw[hc_at] = hc[:, 0:4]
+            bw[hc_at] = hc[:, 4:8]
+        return KmerTable(k, skeys, cov, fw, bw)
 
 
 _MIX_MULT = 0xde5fb9d2630458e9  # phmap_mix<8> multiplier

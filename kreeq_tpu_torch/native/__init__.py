@@ -1,8 +1,9 @@
 """ctypes bindings for the native host helpers (builds on first use).
 
 Host code only: the FASTX parser turns a FASTA/FASTQ file (plain or
-gzip) into one ReadBatch of uint8 codes; the phmap helpers parse and
-place the records of `.kreeq` archives.  The shared library is built
+gzip) into one ReadBatch of uint8 codes; the DB loader reads every map
+file of a `.kreeq` DB into arrays allocated once, and the placement
+helper places the records of its writes.  The shared library is built
 with g++ into the package's gitignored `_build/` directory, keyed on a
 hash of the source.  Without a compiler (or zlib) the callers fall back to the
 pure-Python code in io/fastx.py and io/kreeqdb.py.
@@ -14,7 +15,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, Optional
 
 import numpy as np
 
@@ -62,7 +63,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
         return _lib
     _tried = True
     if not build(_SRC, _LIB, ["g++", "-O3", "-std=gnu++17", "-shared",
-                              "-fPIC", _SRC, "-lz"]):
+                              "-fPIC", "-pthread", _SRC, "-lz"]):
         return None
     try:
         lib = ctypes.CDLL(_LIB)
@@ -80,16 +81,23 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.kn_offsets.argtypes = [ctypes.c_void_p]
     lib.kn_free.argtypes = [ctypes.c_void_p]
 
-    lib.kn_parse_phmap.restype = ctypes.c_void_p
-    lib.kn_parse_phmap.argtypes = [ctypes.POINTER(ctypes.c_uint8),
-                                   ctypes.c_uint64, ctypes.c_int]
-    lib.kn_phmap_count.restype = ctypes.c_uint64
-    lib.kn_phmap_count.argtypes = [ctypes.c_void_p]
-    lib.kn_phmap_keys.restype = ctypes.POINTER(ctypes.c_uint64)
-    lib.kn_phmap_keys.argtypes = [ctypes.c_void_p]
-    lib.kn_phmap_vals.restype = ctypes.POINTER(ctypes.c_uint32)
-    lib.kn_phmap_vals.argtypes = [ctypes.c_void_p]
-    lib.kn_phmap_free.argtypes = [ctypes.c_void_p]
+    lib.kn_db_open.restype = ctypes.c_void_p
+    lib.kn_db_open.argtypes = [ctypes.POINTER(ctypes.c_char_p),
+                               ctypes.c_uint64, ctypes.c_int]
+    lib.kn_db_error.restype = ctypes.c_int
+    lib.kn_db_error.argtypes = [ctypes.c_void_p]
+    lib.kn_db_rows.restype = ctypes.c_uint64
+    lib.kn_db_rows.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.kn_db_bytes.restype = ctypes.c_uint64
+    lib.kn_db_bytes.argtypes = [ctypes.c_void_p]
+    lib.kn_db_load.restype = ctypes.c_int64
+    lib.kn_db_load.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_void_p, ctypes.c_void_p]
+    lib.kn_db_tombstone_count.restype = ctypes.c_uint64
+    lib.kn_db_tombstone_count.argtypes = [ctypes.c_void_p]
+    lib.kn_db_tombstone_keys.restype = ctypes.POINTER(ctypes.c_int64)
+    lib.kn_db_tombstone_keys.argtypes = [ctypes.c_void_p]
+    lib.kn_db_close.argtypes = [ctypes.c_void_p]
     lib.kn_phmap_place.restype = ctypes.c_int
     lib.kn_phmap_place.argtypes = [ctypes.POINTER(ctypes.c_uint64),
                                    ctypes.c_uint64, ctypes.c_uint64,
@@ -168,24 +176,41 @@ def phmap_place(hashes: np.ndarray, cap: int) -> Optional[np.ndarray]:
     return pos
 
 
-def parse_phmap(data: bytes, wide: bool) -> Optional[Tuple[np.ndarray,
-                                                           np.ndarray]]:
-    """Parse a phmap dump into (keys u64[n], vals u32[n,9])."""
+def load_db(paths: List[str], hc_path: Optional[str]):
+    """Load the map files of a `.kreeq` DB (the u8 maps `paths`, then
+    the high-copy map `hc_path`, if any) in one native call: every file
+    mapped, counted, then parsed on several threads straight into arrays
+    allocated once.  Returns (keys, vals8, hc_vals, tombstones, nbytes):
+    keys int64 [n] biased (the port's form), the live u8 rows first and
+    the hc map's n_hc rows last; vals8 u8 [n, 9] (fw[4], bw[4], cov; an
+    hc row's zero); hc_vals u32 [n_hc, 9]; the
+    tombstones' keys int64, biased; the files' bytes.  None without the
+    library; ValueError on a corrupt archive."""
     lib = get_lib()
     if lib is None:
         return None
-    buf = (ctypes.c_uint8 * len(data)).from_buffer_copy(data)
-    h = lib.kn_parse_phmap(buf, len(data), 1 if wide else 0)
-    if not h:
-        raise ValueError("corrupt phmap archive")
+    files = paths + ([hc_path] if hc_path else [])
+    names = (ctypes.c_char_p * len(files))(*(f.encode() for f in files))
+    h = lib.kn_db_open(names, len(files), 1 if hc_path else 0)
     try:
-        n = lib.kn_phmap_count(h)
-        if n == 0:
-            return (np.zeros(0, np.uint64), np.zeros((0, 9), np.uint32))
-        keys = np.ctypeslib.as_array(lib.kn_phmap_keys(h),
-                                     shape=(n,)).copy()
-        vals = np.ctypeslib.as_array(lib.kn_phmap_vals(h),
-                                     shape=(n, 9)).copy()
-        return keys, vals
+        err = lib.kn_db_error(h)
+        if err > 0:
+            raise OSError(err, os.strerror(err))
+        if err < 0:
+            raise ValueError("corrupt phmap archive")
+        rows8, n_hc = lib.kn_db_rows(h, 0), lib.kn_db_rows(h, 1)
+        keys = np.empty(rows8 + n_hc, np.int64)
+        vals8 = np.empty((rows8 + n_hc, 9), np.uint8)
+        hc_vals = np.empty((n_hc, 9), np.uint32)
+        live = lib.kn_db_load(h, keys.ctypes.data, vals8.ctypes.data,
+                              hc_vals.ctypes.data)
+        if live < 0:
+            raise ValueError("corrupt phmap archive")
+        n_tomb = lib.kn_db_tombstone_count(h)
+        tombstones = (np.ctypeslib.as_array(lib.kn_db_tombstone_keys(h),
+                                            shape=(n_tomb,)).copy()
+                      if n_tomb else np.zeros(0, np.int64))
+        n = live + n_hc
+        return keys[:n], vals8[:n], hc_vals, tombstones, lib.kn_db_bytes(h)
     finally:
-        lib.kn_phmap_free(h)
+        lib.kn_db_close(h)

@@ -4,14 +4,24 @@
 //   followed by one BAD: the layout of the device chunks, which are cut
 //   from it by sequence boundaries.  The reference's ingest path is C++ too
 //   (gfalibs StreamObj + kcount, reference: src/input.cpp:188-308);
-// - phmap binary-archive parsing and SwissTable slot placement for
-//   `.kreeq` databases (layout in kreeq_tpu_torch/io/kreeqdb.py).
+// - `.kreeq` database loading (every map file parsed on several threads
+//   straight into the caller's arrays) and SwissTable slot placement
+//   for its writes (layout in kreeq_tpu_torch/io/kreeqdb.py).
 
+#include <fcntl.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
+#include <unistd.h>
 #include <zlib.h>
 
+#include <algorithm>
+#include <atomic>
+#include <cerrno>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <system_error>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -118,61 +128,269 @@ const uint64_t *kn_offsets(void *h) {
 }
 void kn_free(void *h) { delete (Parsed *)h; }
 
-// ---------------------------------------------------------------------
-// phmap binary-archive parsing.
+}  // extern "C"
 
-struct PhmapParsed {
-    std::vector<uint64_t> keys;
-    std::vector<uint32_t> vals;  // 9 per key: fw[4], bw[4], cov
-};
+// ---------------------------------------------------------------------
+// `.kreeq` DB loading: every map file of a DB, in two passes.
+//
+// kn_db_open maps each file and walks its submap headers (pass 1): the
+// size fields give each file's row count, so the caller allocates the
+// outputs once.  kn_db_load parses the files on several threads (pass
+// 2), each u8 map into its own range of the outputs: keys biased to the
+// port's int64 form (key ^ 2^63), counters as u8 [n, 9]; tombstones
+// (cov 255: the record lives in the hc map) are dropped and their keys
+// kept.  The holes they leave are then filled with rows from the
+// outputs' end (the caller sorts the rows, so their order is free), and
+// the hc map's rows follow the live u8 rows: keys, u32 counters apart
+// (their u8 counters zero: the caller places the u32 ones).
 
 static const uint64_t kPhmapVersion = 0xFFFFFFFFFFFFFFF5ULL;
+static const uint64_t kBias = 1ULL << 63;
 
-void *kn_parse_phmap(const uint8_t *data, uint64_t size, int wide) {
-    // wide=0: u8 records (slot 24B); wide=1: u32 records (slot 48B)
-    const uint64_t slot = wide ? 48 : 24;
-    uint64_t off = 0;
-    if (size < 8) return nullptr;
-    uint64_t subcnt;
+namespace {
+
+struct MapFile {
+    const uint8_t *data = nullptr;  // the file, mapped read-only
+    uint64_t size = 0;              // bytes
+    uint64_t rows = 0;              // the submaps' size fields summed
+    uint64_t first = 0;             // its first row in the outputs
+    uint64_t live = 0;              // rows written (pass 2)
+    std::vector<int64_t> tombstones;  // biased keys (pass 2)
+};
+
+struct DbLoad {
+    std::vector<MapFile> maps;  // the u8 maps, then the hc map if any
+    bool has_hc = false;
+    int error = 0;  // 0, -1 a corrupt archive, else an errno
+    uint64_t rows8 = 0, rows_hc = 0, bytes = 0;
+    std::vector<int64_t> tombstones;
+
+    ~DbLoad() {
+        for (MapFile &m : maps)
+            if (m.data) munmap((void *)m.data, m.size);
+    }
+};
+
+// Call fn(i) for i in [0, n) on min(hardware threads, n) threads, this
+// one among them (it works alone where no other thread starts).
+template <class F>
+void parallel_for(uint64_t n, F fn) {
+    uint64_t nt = std::min<uint64_t>(std::thread::hardware_concurrency(), n);
+    std::atomic<uint64_t> next(0);
+    auto work = [&] {
+        for (uint64_t i; (i = next.fetch_add(1)) < n;) fn(i);
+    };
+    std::vector<std::thread> pool;
+    try {
+        for (uint64_t t = 1; t < nt; ++t) pool.emplace_back(work);
+    } catch (const std::system_error &) {
+    }
+    work();
+    for (std::thread &th : pool) th.join();
+}
+
+// Walk a phmap dump (slot bytes a record), checking the version marker,
+// the bounds and the trailing bytes; visit(ctrl, slots, cap, count) on
+// every non-empty submap, which returns false on a corrupt one.
+template <class F>
+bool walk_phmap(const uint8_t *data, uint64_t size, uint64_t slot,
+                F visit) {
+    if (size < 8) return false;
+    uint64_t subcnt, off = 8;
     memcpy(&subcnt, data, 8);
-    off = 8;
-    PhmapParsed *out = new PhmapParsed();
     for (uint64_t s = 0; s < subcnt; ++s) {
-        if (off + 24 > size) { delete out; return nullptr; }
-        uint64_t ver, cnt, cap;
-        memcpy(&ver, data + off, 8);
-        memcpy(&cnt, data + off + 8, 8);
-        memcpy(&cap, data + off + 16, 8);
+        uint64_t hdr[3];  // version, size, capacity
+        if (size - off < 24) return false;
+        memcpy(hdr, data + off, 24);
         off += 24;
-        if (ver != kPhmapVersion) { delete out; return nullptr; }
-        if (cnt == 0) continue;
-        uint64_t nctrl = cap + 17;
-        if (off + nctrl + cap * slot + 8 > size) {
-            delete out;
-            return nullptr;
+        if (hdr[0] != kPhmapVersion) return false;
+        if (hdr[1] == 0) continue;
+        uint64_t cap = hdr[2];
+        // cap + 17 control bytes, cap slots, u64 growth_left
+        if (hdr[1] > cap || cap > size ||
+            size - off < cap * (slot + 1) + 25)
+            return false;
+        if (!visit(data + off, data + off + cap + 17, cap, hdr[1]))
+            return false;
+        off += cap * (slot + 1) + 25;
+    }
+    return off == size;
+}
+
+// fn(i) for every full slot i < cap (control byte's top bit clear),
+// eight control bytes a word (little-endian, as the files are).
+template <class F>
+void for_full_slots(const uint8_t *ctrl, uint64_t cap, F fn) {
+    for (uint64_t i = 0; i < cap; i += 8) {
+        uint64_t group;  // cap + 17 control bytes: 8 from i < cap fit
+        memcpy(&group, ctrl + i, 8);
+        uint64_t full = ~group & 0x8080808080808080ULL;
+        if (cap - i < 8) full &= (1ULL << 8 * (cap - i)) - 1;
+        for (; full; full &= full - 1) fn(i + __builtin_ctzll(full) / 8);
+    }
+}
+
+// Pass 2 of a u8 map: its live rows from m.first on, its tombstones.
+bool load_u8(MapFile &m, int64_t *keys, uint8_t *vals8) {
+    uint64_t at = m.first;
+    bool ok = walk_phmap(
+        m.data, m.size, 24,
+        [&](const uint8_t *ctrl, const uint8_t *slots, uint64_t cap,
+            uint64_t count) {
+            uint64_t seen = 0;
+            for_full_slots(ctrl, cap, [&](uint64_t i) {
+                if (++seen > count) return;
+                const uint8_t *rec = slots + i * 24;
+                uint64_t key;
+                memcpy(&key, rec, 8);
+                if (rec[16] == 255) {
+                    m.tombstones.push_back((int64_t)(key ^ kBias));
+                    return;
+                }
+                keys[at] = (int64_t)(key ^ kBias);
+                memcpy(vals8 + at * 9, rec + 8, 9);
+                ++at;
+            });
+            return seen == count;
+        });
+    m.live = at - m.first;
+    return ok;
+}
+
+// Pass 2 of the hc map: its keys (biased) and u32 counters.
+bool load_hc(MapFile &m, int64_t *keys, uint32_t *vals) {
+    uint64_t at = 0;
+    return walk_phmap(
+        m.data, m.size, 48,
+        [&](const uint8_t *ctrl, const uint8_t *slots, uint64_t cap,
+            uint64_t count) {
+            uint64_t seen = 0;
+            for_full_slots(ctrl, cap, [&](uint64_t i) {
+                if (++seen > count) return;
+                const uint8_t *rec = slots + i * 48;
+                uint64_t key;
+                memcpy(&key, rec, 8);
+                keys[at] = (int64_t)(key ^ kBias);
+                memcpy(vals + at * 9, rec + 8, 36);
+                ++at;
+            });
+            return seen == count;
+        });
+}
+
+}  // namespace
+
+extern "C" {
+
+// Pass 1: map the n files (the u8 maps, then the hc map when has_hc)
+// and count their rows.  Always returns a handle: kn_db_error says
+// whether a file failed to open (its errno) or is corrupt (-1).
+void *kn_db_open(const char *const *paths, uint64_t n, int has_hc) {
+    DbLoad *db = new DbLoad();
+    db->maps.resize(n);
+    db->has_hc = has_hc && n > 0;
+    std::vector<int> errs(n, 0);
+    parallel_for(n, [&](uint64_t f) {
+        MapFile &m = db->maps[f];
+        int fd = open(paths[f], O_RDONLY);
+        struct stat st;
+        if (fd < 0 || fstat(fd, &st) != 0) {
+            errs[f] = errno;
+            if (fd >= 0) close(fd);
+            return;
         }
-        const uint8_t *ctrl = data + off;
-        const uint8_t *slots = data + off + nctrl;
-        for (uint64_t i = 0; i < cap; ++i) {
-            if (ctrl[i] & 0x80) continue;
-            const uint8_t *rec = slots + i * slot;
-            uint64_t key;
-            memcpy(&key, rec, 8);
-            out->keys.push_back(key);
-            if (wide) {
-                uint32_t v[9];
-                memcpy(v, rec + 8, 36);
-                out->vals.insert(out->vals.end(), v, v + 9);
+        m.size = (uint64_t)st.st_size;
+        if (m.size > 0) {
+            void *p = mmap(nullptr, m.size, PROT_READ, MAP_PRIVATE, fd, 0);
+            if (p == MAP_FAILED) {
+                errs[f] = errno;
+                m.size = 0;
             } else {
-                for (int j = 0; j < 9; ++j)
-                    out->vals.push_back(rec[8 + j]);
+                m.data = (const uint8_t *)p;
             }
         }
-        off += nctrl + cap * slot + 8;
+        close(fd);
+        if (errs[f]) return;
+        bool hc = db->has_hc && f == n - 1;
+        if (!walk_phmap(m.data, m.size, hc ? 48 : 24,
+                        [&](const uint8_t *, const uint8_t *, uint64_t,
+                            uint64_t count) {
+                            m.rows += count;
+                            return true;
+                        }))
+            errs[f] = -1;
+    });
+    for (uint64_t f = 0; f < n; ++f) {
+        if (errs[f] && !db->error) db->error = errs[f];
+        db->bytes += db->maps[f].size;
+        if (db->has_hc && f == n - 1) {
+            db->rows_hc = db->maps[f].rows;
+        } else {
+            db->maps[f].first = db->rows8;
+            db->rows8 += db->maps[f].rows;
+        }
     }
-    if (off != size) { delete out; return nullptr; }
-    return out;
+    return db;
 }
+
+int kn_db_error(void *h) { return ((DbLoad *)h)->error; }
+uint64_t kn_db_rows(void *h, int hc) {
+    DbLoad *db = (DbLoad *)h;
+    return hc ? db->rows_hc : db->rows8;
+}
+uint64_t kn_db_bytes(void *h) { return ((DbLoad *)h)->bytes; }
+
+// Pass 2 into the caller's arrays: keys int64 [rows8 + rows_hc], vals8
+// u8 [rows8 + rows_hc, 9], vals_hc u32 [rows_hc, 9].  Returns the live
+// u8 rows L (rows [0, L) the u8 maps', [L, L + rows_hc) the hc map's),
+// or -1 on a corrupt archive.
+int64_t kn_db_load(void *h, int64_t *keys, uint8_t *vals8,
+                   uint32_t *vals_hc) {
+    DbLoad *db = (DbLoad *)h;
+    uint64_t n = db->maps.size(), n8 = n - (db->has_hc ? 1 : 0);
+    std::vector<int64_t> hc_keys(db->rows_hc);
+    std::vector<char> ok(n, 1);
+    parallel_for(n, [&](uint64_t f) {
+        ok[f] = f < n8 ? load_u8(db->maps[f], keys, vals8)
+                       : load_hc(db->maps[f], hc_keys.data(), vals_hc);
+    });
+    for (uint64_t f = 0; f < n; ++f)
+        if (!ok[f]) return -1;
+    // fill the holes below `live` with the live rows above it
+    uint64_t live = 0;
+    for (uint64_t f = 0; f < n8; ++f) live += db->maps[f].live;
+    uint64_t src_f = n8, src = 0, src_end = 0;  // next row to move
+    for (uint64_t f = 0; f < n8; ++f) {
+        MapFile &m = db->maps[f];
+        uint64_t hole = m.first + m.live;
+        uint64_t end = std::min(m.first + m.rows, live);
+        for (; hole < end; ++hole) {
+            while (src == src_end) {  // the next map's rows above live
+                MapFile &s = db->maps[--src_f];
+                src = std::max(s.first, live);
+                src_end = std::max(s.first + s.live, src);
+            }
+            --src_end;
+            keys[hole] = keys[src_end];
+            memcpy(vals8 + hole * 9, vals8 + src_end * 9, 9);
+        }
+    }
+    std::copy(hc_keys.begin(), hc_keys.end(), keys + live);
+    memset(vals8 + live * 9, 0, db->rows_hc * 9);
+    for (uint64_t f = 0; f < n8; ++f)
+        db->tombstones.insert(db->tombstones.end(),
+                              db->maps[f].tombstones.begin(),
+                              db->maps[f].tombstones.end());
+    return (int64_t)live;
+}
+
+uint64_t kn_db_tombstone_count(void *h) {
+    return ((DbLoad *)h)->tombstones.size();
+}
+const int64_t *kn_db_tombstone_keys(void *h) {
+    return ((DbLoad *)h)->tombstones.data();
+}
+void kn_db_close(void *h) { delete (DbLoad *)h; }
 
 // SwissTable slot placement for phmap-compatible writes: replays
 // find_first_non_full (group-of-16 triangular probing) so a table
@@ -207,14 +425,5 @@ int kn_phmap_place(const uint64_t *hs, uint64_t n, uint64_t cap,
     }
     return 0;
 }
-
-uint64_t kn_phmap_count(void *h) { return ((PhmapParsed *)h)->keys.size(); }
-const uint64_t *kn_phmap_keys(void *h) {
-    return ((PhmapParsed *)h)->keys.data();
-}
-const uint32_t *kn_phmap_vals(void *h) {
-    return ((PhmapParsed *)h)->vals.data();
-}
-void kn_phmap_free(void *h) { delete (PhmapParsed *)h; }
 
 }  // extern "C"

@@ -1106,3 +1106,42 @@ def test_count_chunk_equals_cpu(cuda, k):
                                                  device=cuda), k)
     assert all(x.is_cuda for x in empty) and int(empty[4]) == 0
     assert kernels.LAUNCHES["count"] == before["count"] + 1
+
+
+@pytest.mark.parametrize("kind", ["empty", "plain", "overflow", "heavy"])
+@pytest.mark.parametrize("k", [21, 32])
+def test_read_kreeq_on_the_card(cuda, tmp_path, monkeypatch, kind, k):
+    """A `.kreeq` DB loaded on the card (u8 counters widened in the
+    gather, the hc rows' counters placed by searchsorted) and in the
+    host form equals its load on the CPU (held against the JAX reader
+    by tests/test_torch_kreeqdb.py); at k = 32 keys take both signs."""
+    from kreeq_tpu_torch.core.table import KmerTable
+    from kreeq_tpu_torch.io.kreeqdb import read_kreeq, write_kreeq
+
+    rng = np.random.default_rng(k)
+    n = 0 if kind == "empty" else 20000
+    keys = np.unique(rng.integers(0, 1 << (2 * k), n, dtype=np.uint64)
+                     if k < 32 else rng.integers(0, 1 << 63, n,
+                                                 dtype=np.uint64) * 2)
+    n = keys.shape[0]
+    top = {"overflow": 300, "heavy": 600}.get(kind, 200)
+    cov = rng.integers(1, top, n).astype(np.uint32)
+    fw = rng.integers(0, top, (n, 4)).astype(np.uint32)
+    bw = rng.integers(0, top, (n, 4)).astype(np.uint32)
+    if n:
+        cov[:3] = 0xFFFFFFFF
+    db = str(tmp_path / "x.kreeq")
+    write_kreeq(db, KmerTable.from_numpy(k, keys, cov, fw, bw, "cpu"))
+    want = read_kreeq(db, "cpu").to_numpy()
+    got = read_kreeq(db, cuda)
+    torch.cuda.synchronize()
+    assert not got.on_host and got.keys.device.type == "cuda"
+    for g, w in zip(got.to_numpy(), want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    for g, w in zip(want, (keys, cov, fw, bw)):
+        assert np.array_equal(g, w)
+    monkeypatch.setenv("KREEQ_TPU_MAX_TABLE_ROWS", "500")
+    host = read_kreeq(db, cuda)
+    assert host.on_host or n <= 500
+    for g, w in zip(host.to_numpy(), want):
+        assert np.array_equal(g, w)
